@@ -134,8 +134,7 @@ def step_keys(seed, n_steps: int):
     """Step ``t``'s key, ``split(key(seed), n_steps)[t]``, as two python
     ints each: computed on the host, so passing them to a kernel makes no
     copy from the card."""
-    c1, c2 = KR.split_child(*KR.seed_key(seed, device="cpu"), torch.arange(n_steps))
-    return list(zip(c1.tolist(), c2.tolist()))
+    return KR.split_keys([int(w) for w in KR.seed_key(seed, device="cpu")], n_steps)
 
 
 # ---------------------------------------------------------------------------

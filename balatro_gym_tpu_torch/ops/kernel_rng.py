@@ -84,6 +84,16 @@ def split_child(k1, k2, i):
     return threefry2x32(k1, k2, 0, i)
 
 
+def split_keys(key, n: int):
+    """``jax.random.split(key, n)`` of one key given as its two 32-bit words
+    (hi, lo): the ``n`` children as pairs of python ints. They are computed
+    on the host, so a kernel argument or a draw made from them copies
+    nothing from the card."""
+    k1, k2 = (torch.tensor(_u32(w), dtype=torch.int64) for w in key)
+    c1, c2 = split_child(k1, k2, torch.arange(n))
+    return list(zip(c1.tolist(), c2.tolist()))
+
+
 def random_bits32(k1, k2, i=0):
     """Element ``i`` of ``jax.random.bits(key, shape, uint32)`` in row-major
     order (arrays under 2**32 elements): y1 ^ y2 of threefry(key, (0, i))."""

@@ -1,0 +1,136 @@
+"""Training command line of the port: PPO on one device.
+
+Port of ``balatro_gym_tpu/train/cli.py`` for the PPO learner:
+
+    python -m balatro_gym_tpu_torch.train.cli --env sim --updates 50
+    python -m balatro_gym_tpu_torch.train.cli --env full --fused-rollout --bf16 --env-shuffle
+    python -m balatro_gym_tpu_torch.train.cli --env sim --updates 2 --device cpu
+
+It runs on the card unless given ``--device cpu`` (the fused collection's
+plain versions then run on the CPU), prints one JSON line of metrics every
+``--log-every`` updates and writes the reference's summary keys to
+``--summary``. The reference's options that the port does not carry yet
+exit non-zero and name the ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from pathlib import Path
+
+import torch
+
+# option -> (is it set?, the ROADMAP item that ports it)
+_NOT_PORTED = {
+    "--algorithm a2c|dqn": (lambda a: a.algorithm != "ppo",
+                            "A2C and DQN are not ported (ROADMAP queue 1 item 9)"),
+    "--distributed": (lambda a: a.distributed,
+                      "data-parallel training is not ported (ROADMAP queue 1 item 10)"),
+    "--checkpoint-dir": (lambda a: bool(a.checkpoint_dir),
+                         "checkpointing is not ported (ROADMAP queue 1 item 11)"),
+    "--resume": (lambda a: bool(a.resume),
+                 "checkpointing is not ported (ROADMAP queue 1 item 11)"),
+    "--checkpoint-every": (lambda a: a.checkpoint_every > 0,
+                           "checkpointing is not ported (ROADMAP queue 1 item 11)"),
+    "--wandb": (lambda a: a.wandb,
+                "W&B logging is not ported (ROADMAP queue 1 item 9)"),
+    "--env full without --fused-rollout": (
+        lambda a: a.env == "full" and not a.fused_rollout,
+        "the full env's step_autoreset is not ported (ROADMAP queue 1 item 4): "
+        "pass --fused-rollout"),
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Balatro PPO trainer (PyTorch, one device)")
+    p.add_argument("--algorithm", choices=["ppo", "a2c", "dqn"], default="ppo")
+    p.add_argument("--env", choices=["sim", "full"], default="sim")
+    p.add_argument("--updates", type=int, default=50)
+    p.add_argument("--n-envs", type=int, default=1024)
+    p.add_argument("--rollout", type=int, default=16)
+    p.add_argument("--epochs", type=int, default=4)
+    p.add_argument("--minibatches", type=int, default=4)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--distributed", action="store_true")
+    p.add_argument("--checkpoint-dir", type=str, default="")
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--resume", type=str, default="")
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--wandb", action="store_true")
+    p.add_argument("--summary", type=str, default="training_summary.json",
+                   help="where to write the run's summary ('' = nowhere)")
+    p.add_argument("--fused-rollout", action="store_true",
+                   help="collect through the fused collection kernels (full env only)")
+    p.add_argument("--structured-net", action="store_true",
+                   help="three-branch features extractor (full env only)")
+    p.add_argument("--hidden", type=int, nargs="*", default=None,
+                   help="flat-MLP hidden widths (default 256 256)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 matmuls for the policy net (params stay float32)")
+    p.add_argument("--env-shuffle", action="store_true",
+                   help="minibatches from an env-axis permutation (see PPOConfig)")
+    p.add_argument("--ent-final", type=float, default=-1.0,
+                   help="linear entropy-coefficient decay target (<0 = constant)")
+    p.add_argument("--lr-final", type=float, default=-1.0,
+                   help="linear lr decay target (<0 = constant)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default) or cpu (the plain versions, for testing)")
+    return p
+
+
+def main(argv=None) -> dict:
+    args = build_parser().parse_args(argv)
+    for option, (is_set, why) in _NOT_PORTED.items():
+        if is_set(args):
+            raise SystemExit(f"{option}: {why}")
+    if args.fused_rollout and args.env != "full":
+        raise SystemExit("--fused-rollout requires --env full")
+    if args.structured_net and args.env != "full":
+        raise SystemExit("--structured-net requires --env full")
+
+    from balatro_gym_tpu_torch.ops import kernel_rng as KR
+    from balatro_gym_tpu_torch.train.ppo import (
+        PPOConfig, full_env_hooks, make_ppo, sim_env_hooks)
+
+    hooks = sim_env_hooks() if args.env == "sim" else full_env_hooks()
+    cfg = PPOConfig(n_envs=args.n_envs, rollout_len=args.rollout, epochs=args.epochs,
+                    minibatches=args.minibatches, lr=args.lr,
+                    fused_rollout=args.fused_rollout, structured_net=args.structured_net,
+                    bf16_compute=args.bf16, env_shuffle=args.env_shuffle,
+                    total_updates=args.updates, ent_coef_final=args.ent_final,
+                    lr_final=args.lr_final,
+                    **({"hidden": tuple(args.hidden)} if args.hidden else {}))
+    init_fn, update_fn, _ = make_ppo(hooks, cfg, device=args.device)
+    ts = init_fn([int(w) for w in KR.seed_key(args.seed, device="cpu")])
+    on_card = ts.ret_carry.device.type == "cuda"
+
+    t0 = time.perf_counter()
+    metrics = {}
+    for i in range(args.updates):
+        ts, metrics = update_fn(ts)
+        if args.log_every and (i + 1) % args.log_every == 0:
+            m = {k: float(v) for k, v in metrics.items()}
+            m["update"] = i + 1
+            m["env_steps_per_sec"] = (i + 1) * cfg.n_envs * cfg.rollout_len / (
+                time.perf_counter() - t0)
+            print(json.dumps(m), flush=True)
+    if on_card:
+        torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    total_steps = args.updates * cfg.n_envs * cfg.rollout_len
+    summary = {
+        "algorithm": args.algorithm, "env": args.env, "total_env_steps": total_steps,
+        "wall_seconds": elapsed, "steps_per_second": total_steps / elapsed,
+        "updates": args.updates, "final_metrics": {k: float(v) for k, v in metrics.items()},
+        "n_devices": 1,
+    }
+    if args.summary:
+        Path(args.summary).write_text(json.dumps(summary, indent=2))
+    print(json.dumps(summary))
+    return summary
+
+
+if __name__ == "__main__":  # pragma: no cover
+    main()

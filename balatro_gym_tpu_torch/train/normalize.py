@@ -1,0 +1,55 @@
+"""Running observation and reward normalisation (SB3's ``VecNormalize``).
+
+Port of ``balatro_gym_tpu/train/normalize.py``: running mean and variance
+of observations and of discounted returns, merged batch by batch with
+Chan's parallel formula. The statistics are float32 tensors on the
+learner's device. The variances are population variances (``jnp.var``,
+ddof 0), so every ``var`` here takes ``correction=0``. The reference's
+data-parallel merge (``axis_name``) belongs with the port's
+``torch.distributed`` learner and is not here.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass
+class RunningStats:
+    mean: torch.Tensor    # [D] (or a scalar for returns)
+    var: torch.Tensor     # [D]
+    count: torch.Tensor   # scalar float32
+
+
+def init_stats(dim: int | None = None, device=None) -> RunningStats:
+    shape = () if dim is None else (dim,)
+    return RunningStats(mean=torch.zeros(shape, device=device),
+                        var=torch.ones(shape, device=device),
+                        count=torch.full((), 1e-4, device=device))
+
+
+def update_stats(rs: RunningStats, batch) -> RunningStats:
+    """Merge a batch of samples (``[N, D]`` or ``[N]``) into the stats."""
+    b_mean = batch.mean(0)
+    b_var = batch.var(0, correction=0)
+    b_count = torch.full((), float(batch.shape[0]), device=batch.device)
+    delta = b_mean - rs.mean
+    tot = rs.count + b_count
+    new_mean = rs.mean + delta * b_count / tot
+    m2 = rs.var * rs.count + b_var * b_count + delta ** 2 * rs.count * b_count / tot
+    return RunningStats(mean=new_mean, var=m2 / tot, count=tot)
+
+
+def normalize(rs: RunningStats, x, clip: float = 10.0):
+    return ((x - rs.mean) / torch.sqrt(rs.var + 1e-8)).clamp(-clip, clip)
+
+
+def normalize_fm(rs: RunningStats, x_fm, clip: float = 10.0):
+    """:func:`normalize` of feature-major ``[D, E]`` rows."""
+    return ((x_fm - rs.mean[:, None]) / torch.sqrt(rs.var[:, None] + 1e-8)).clamp(-clip, clip)
+
+
+def normalize_reward(rs: RunningStats, r, clip: float = 10.0):
+    """SB3's rule: rewards are scaled by the return std, not centred."""
+    return (r / torch.sqrt(rs.var + 1e-8)).clamp(-clip, clip)

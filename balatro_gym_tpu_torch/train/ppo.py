@@ -1,0 +1,592 @@
+"""PPO learner on batched envs, on one device.
+
+Port of ``balatro_gym_tpu/train/ppo.py``. One update is: an optional
+staggered reset of some envs, a rollout of ``rollout_len`` steps of every
+env with the policy in the loop, the running observation and return
+statistics, GAE, and ``epochs`` x ``minibatches`` steps of clipped PPO with
+Adam. The hyperparameters and their defaults are the reference's.
+
+The reference compiles an update into one XLA program; here it runs
+eagerly:
+
+* the net is an ``nn.Module`` (``train/networks.py``) whose parameters are
+  the learner's parameters; gradients come from autograd;
+* the optimizer is optax's ``chain(clip_by_global_norm(max_grad_norm),
+  adam(lr, eps=1e-5))`` written out (:func:`adam_update`): the clip is a
+  select on ``g_norm < max_norm``, Adam's bias corrections are float32 with
+  the incremented count, and the linear ``lr`` schedule counts the steps
+  applied. A minibatch that the KL gate skips advances no count (with
+  ``kl_target`` set, the gate reads each minibatch's approx-KL on the
+  host: one wait for the card a minibatch);
+* every random draw comes from the Threefry key carried in the state
+  (``ops/kernel_rng.py``), split as the reference splits it, so the same
+  state gives the same env steps, actions and shuffles as the reference.
+
+Two rollouts, as in the reference. With ``fused_rollout`` (the flagship env
+only) a step is the collection of ``ops/fused_policy_rollout.py``: the
+policy forward, the sampler kernel and the env step kernel K3a, which also
+writes the next step's observation and mask; the env state stays packed
+between updates. Otherwise the hooks' ``observe``, ``action_mask`` and
+``step_autoreset`` run in torch and ``jax.random.categorical``'s draw is
+written out (:func:`categorical`); that is the sim env's path. The flagship
+env's own ``step_autoreset`` is not ported (ROADMAP queue 1 item 4), so the
+full env trains only with ``fused_rollout``.
+
+Neither rollout synchronises with the card inside its step loop: step keys
+are split on the host before it, and every per-step value stays on the
+device.
+
+Every entry point runs on the card unless the caller passes
+``device="cpu"``, where the kernels' plain versions run; on a card the
+collection launches its kernels or raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from balatro_gym_tpu_torch.core.device import run_device
+from balatro_gym_tpu_torch.ops import kernel_rng as KR
+from balatro_gym_tpu_torch.train.networks import (
+    ActorCritic, StructuredActorCritic, load_flax_params)
+from balatro_gym_tpu_torch.train.normalize import (
+    RunningStats, init_stats, normalize, normalize_reward, update_stats)
+
+_F32 = torch.float32
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+class EnvHooks(NamedTuple):
+    """Batched env functions: every state holds a batch of envs."""
+
+    reset: Callable[..., Any]           # keys [B, 2] -> state
+    step_autoreset: Callable[..., Any]  # (state, action [B]) -> (state, reward, done); None: not ported
+    observe: Callable[..., Any]         # state -> [B, D] float32
+    action_mask: Callable[..., Any]     # state -> [B, A] bool
+    n_actions: int
+    obs_dim: int
+    # The fused collection's (observe, sample, step) on packed rows; None:
+    # the kernels' wrappers (observe_fused, sample_fused, step_fused)
+    fused_ops: Any = None
+
+
+@dataclasses.dataclass(frozen=True)
+class PPOConfig:
+    """The reference's ``PPOConfig``, field for field (its docstrings say
+    what each does), less ``fused_interpret``: ``device="cpu"`` runs the
+    fused collection's plain versions."""
+
+    n_envs: int = 1024
+    rollout_len: int = 16
+    epochs: int = 4
+    minibatches: int = 4
+    lr: float = 3e-4
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    clip_eps: float = 0.2
+    ent_coef: float = 0.01
+    vf_coef: float = 0.5
+    max_grad_norm: float = 0.5
+    total_updates: int = 0
+    ent_coef_final: float = -1.0
+    lr_final: float = -1.0
+    kl_target: float = 0.0
+    repeat_penalty: float = 0.0
+    cycle_penalty: float = 0.0
+    reset_envs_every: int = 0
+    hidden: tuple = (256, 256)
+    normalize_obs: bool = True
+    normalize_reward: bool = True
+    bf16_compute: bool = False
+    fused_rollout: bool = False
+    structured_net: bool = False
+    env_shuffle: bool = False
+
+
+@dataclasses.dataclass
+class AdamState:
+    """optax's Adam state: ``count`` steps applied (also the lr schedule's
+    count) and the moments, one tensor per parameter in
+    :func:`param_list` order."""
+
+    count: int
+    mu: list
+    nu: list
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The learner's state. ``params`` is the policy module (its parameters
+    are the learner's); an update changes them and the Adam moments in
+    place, so take ``copy.deepcopy`` of a state to keep it. ``env_states``
+    is a batched env state (packed rows, the dict of
+    ``pack_full_state``, on the fused path); ``key`` the two 32-bit words of
+    the Threefry key."""
+
+    params: torch.nn.Module
+    opt_state: AdamState
+    env_states: Any
+    key: tuple
+    update_idx: int
+    obs_stats: RunningStats
+    ret_stats: RunningStats
+    ret_carry: torch.Tensor   # [n_envs] running discounted return
+
+
+class Transition(NamedTuple):
+    """A rollout, each field ``[rollout_len, n_envs, ...]``."""
+
+    obs: torch.Tensor
+    mask: torch.Tensor
+    action: torch.Tensor
+    log_prob: torch.Tensor
+    value: torch.Tensor
+    reward: torch.Tensor    # the training reward (normalised and shaped)
+    done: torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Optimizer: optax.chain(clip_by_global_norm, adam), written out
+# ---------------------------------------------------------------------------
+
+
+def param_list(net):
+    """The parameters in flax's leaf order: ``Dense_i`` bias, then kernel
+    (``weight``)."""
+    return [p for lin in net.dense_layers() for p in (lin.bias, lin.weight)]
+
+
+def adam_init(params) -> AdamState:
+    return AdamState(0, [torch.zeros_like(p) for p in params],
+                     [torch.zeros_like(p) for p in params])
+
+
+def linear_schedule(init: float, end: float, steps: int):
+    """``optax.linear_schedule(init, end, steps)`` of a step count, in
+    float32."""
+    def lr(count):
+        c = np.float32(min(max(count, 0), steps))
+        frac = np.float32(1) - c / np.float32(steps)
+        return float(np.float32(init - end) * frac + np.float32(end))
+    return lr
+
+
+def adam_update(params, grads, st: AdamState, lr: float, max_norm: float,
+                b1=0.9, b2=0.999, eps=1e-5) -> AdamState:
+    """One step of ``chain(clip_by_global_norm(max_norm), adam(lr, eps))``:
+    the parameters change in place; returns the new state."""
+    g_norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    keep = g_norm < max_norm
+    count = st.count + 1
+    bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
+    bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
+    mus, nus = [], []
+    with torch.no_grad():
+        for p, g, mu, nu in zip(params, grads, st.mu, st.nu):
+            g = torch.where(keep, g, g / g_norm * max_norm)
+            mu = (1 - b1) * g + b1 * mu
+            nu = (1 - b2) * (g * g) + b2 * nu
+            p.add_((-lr) * ((mu / bc1) / (torch.sqrt(nu / bc2) + eps)))
+            mus.append(mu)
+            nus.append(nu)
+    return AdamState(count, mus, nus)
+
+
+# ---------------------------------------------------------------------------
+# The sampler of the generic rollout
+# ---------------------------------------------------------------------------
+
+
+def categorical(key, logits):
+    """``jax.random.categorical(key, logits)`` over ``[B, A]`` logits and
+    the log-softmax at the drawn action: (action ``[B]`` int64, log_prob
+    ``[B]``). Element ``(b, a)`` is perturbed by ``-log(-log(u))``, ``u =
+    uniform(bits[b * A + a], tiny, 1)`` of ``jax.random.bits(key, (B,
+    A))``; ``key`` is two python ints."""
+    n, a = logits.shape
+    idx = torch.arange(n * a, device=logits.device).view(n, a)
+    u = KR.uniform_f32(KR.random_bits32(*key, idx), _TINY, 1.0)
+    action = (logits + (-torch.log(-torch.log(u)))).argmax(1)
+    log_prob = torch.log_softmax(logits, 1).gather(1, action[:, None])[:, 0]
+    return action, log_prob
+
+
+def gae(traj: Transition, last_value, gamma: float, gae_lambda: float):
+    """Generalised advantage estimation over ``[T, E]`` rewards, values
+    and dones, from the value of the state after the last step: (advantages,
+    returns)."""
+    adv = torch.empty_like(traj.value)
+    nonterm = 1.0 - traj.done.to(_F32)
+    gae_t, next_value = torch.zeros_like(last_value), last_value
+    for t in reversed(range(traj.value.shape[0])):
+        delta = traj.reward[t] + gamma * next_value * nonterm[t] - traj.value[t]
+        gae_t = delta + gamma * gae_lambda * nonterm[t] * gae_t
+        adv[t] = gae_t
+        next_value = traj.value[t]
+    return adv, adv + traj.value
+
+
+def ppo_loss(net, batch, ent_coef: float, cfg: PPOConfig):
+    """The clipped PPO loss of a minibatch ``(Transition, advantages,
+    returns)``: (total, (pg_loss, v_loss, entropy, approx_kl)), all but
+    ``total`` detached. Advantages are standardised with the population
+    std; the entropy sums over legal actions only."""
+    t, adv, ret = batch
+    logits, value = net(t.obs, t.mask)
+    log_all = torch.log_softmax(logits, -1)
+    log_prob = log_all.gather(1, t.action.to(torch.int64)[:, None])[:, 0]
+    ratio = torch.exp(log_prob - t.log_prob)
+    adv_n = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    pg1 = ratio * adv_n
+    pg2 = ratio.clamp(1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv_n
+    pg_loss = -torch.minimum(pg1, pg2).mean()
+    v_clip = t.value + (value - t.value).clamp(-cfg.clip_eps, cfg.clip_eps)
+    v_loss = 0.5 * torch.maximum((value - ret) ** 2, (v_clip - ret) ** 2).mean()
+    ent = -torch.where(t.mask, torch.exp(log_all) * log_all, 0.0).sum(-1).mean()
+    total = pg_loss + cfg.vf_coef * v_loss - ent_coef * ent
+    # Schulman's approx-KL E[(r - 1) - log r]: for the gate and the metrics
+    approx_kl = ((ratio - 1.0) - (log_prob - t.log_prob)).mean().detach()
+    return total, (pg_loss.detach(), v_loss.detach(), ent.detach(), approx_kl)
+
+
+# ---------------------------------------------------------------------------
+# The learner
+# ---------------------------------------------------------------------------
+
+
+def _make_net(hooks: EnvHooks, cfg: PPOConfig, generator):
+    dt = torch.bfloat16 if cfg.bf16_compute else None
+    if cfg.structured_net:
+        return StructuredActorCritic(hooks.n_actions, hooks.obs_dim, compute_dtype=dt,
+                                     generator=generator)
+    return ActorCritic(hooks.n_actions, hooks.obs_dim, tuple(cfg.hidden), compute_dtype=dt,
+                       generator=generator)
+
+
+def _check(hooks: EnvHooks, cfg: PPOConfig):
+    if cfg.env_shuffle and cfg.n_envs % cfg.minibatches:
+        raise ValueError("env_shuffle slices minibatches along the env axis: "
+                         f"n_envs={cfg.n_envs} % minibatches={cfg.minibatches}")
+    if cfg.fused_rollout:
+        from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
+        if (hooks.obs_dim, hooks.n_actions) != (FP.OBS_DIM, FP.N_ACTIONS):
+            raise ValueError("fused_rollout supports the flagship full env only")
+    elif hooks.step_autoreset is None:
+        raise NotImplementedError(
+            "this env's step_autoreset is not ported (the flagship env's "
+            "full_env.step_autoreset: ROADMAP queue 1 item 4); train it with "
+            "fused_rollout=True")
+
+
+def _keys(key, n, dev):
+    """``split(key, n)`` as a ``[n, 2]`` tensor of words on ``dev``."""
+    return torch.stack(KR.split_child(*key, torch.arange(n, device=dev)), -1)
+
+
+def _where_lanes(lanes, a, b):
+    """Per-env select of two batched env states (dataclass of ``[B, ...]``
+    tensors, or packed rows with the env axis last)."""
+    if isinstance(a, dict):
+        return {k: torch.where(lanes, a[k], b[k]) for k in a}
+    return type(a)(**{f.name: torch.where(
+        lanes.reshape((-1,) + (1,) * (getattr(a, f.name).dim() - 1)),
+        getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a)})
+
+
+def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None):
+    """(init_fn, update_fn, policy_fn) of one PPO run on one device.
+
+    init_fn(key) -> TrainState, ``key`` the two words of a Threefry key.
+    The env states and statistics are the reference's ``init_fn``'s; the
+    weights cannot be (flax's initialiser is not torch's): they are drawn
+    orthogonal from a ``torch.Generator`` seeded with the ``k_net`` words.
+    update_fn(ts, record=None) -> (TrainState, metrics): one update; the
+    metrics dict has the reference's keys, as 0-dim tensors on the device.
+    Given a dict as ``record``, it is filled with the rollout's
+    ``Transition`` (``traj``), its raw rewards (``raw``), the return carry
+    of every step (``rets``) and the advantages (``adv``), and, on a card,
+    ``events``: (stage, CUDA event) pairs recorded at the start and after
+    each stage (collection, stats, last value + GAE, shuffle + SGD).
+    policy_fn(params, obs, mask) -> (logits, value).
+
+    device: where to run (default: the card; it raises where there is none;
+    ``device="cpu"`` runs the fused collection's plain versions).
+    """
+    _check(hooks, cfg)
+    dev = run_device((), device)
+    fused = cfg.fused_rollout
+    if cfg.lr_final >= 0.0 and cfg.total_updates > 0:
+        lr_at = linear_schedule(cfg.lr, cfg.lr_final,
+                                cfg.total_updates * cfg.epochs * cfg.minibatches)
+    else:
+        lr_at = lambda count: cfg.lr                               # noqa: E731
+    store_dt = torch.bfloat16 if (fused and cfg.bf16_compute) else _F32
+    flags = (torch.zeros((), device=dev), torch.ones((), device=dev))    # kl_skipped
+    if fused:
+        from balatro_gym_tpu_torch.ops import fused_full_rollout as FF
+        from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
+        observe_p, sample_p, step_p = hooks.fused_ops or (
+            functools.partial(f, device=dev)
+            for f in (FP.observe_fused, FP.sample_fused, FP.step_fused))
+
+    def reset_envs(keys):
+        st = hooks.reset(keys)
+        if fused:
+            return {k: v.contiguous() for k, v in FF.pack_full_state(st).items()}
+        return st
+
+    def init_fn(key) -> TrainState:
+        k_net, k_env, k_run = KR.split_keys(key, 3)
+        net = _make_net(hooks, cfg, torch.Generator().manual_seed((k_net[0] << 32) | k_net[1]))
+        net = net.to(dev)
+        return TrainState(
+            params=net, opt_state=adam_init(param_list(net)),
+            env_states=reset_envs(_keys(k_env, cfg.n_envs, dev)), key=k_run, update_idx=0,
+            obs_stats=init_stats(hooks.obs_dim, dev), ret_stats=init_stats(device=dev),
+            ret_carry=torch.zeros(cfg.n_envs, device=dev))
+
+    def shape_reward(reward, action, prev_a):
+        """The repeat penalty (training reward only)."""
+        if not cfg.repeat_penalty:
+            return reward
+        rep = (action == prev_a) & (reward <= 0.0)
+        return reward - cfg.repeat_penalty * rep.to(_F32)
+
+    def cycle_shape(train_reward, raw, action, done, alo, ahi):
+        """The since-last-reward action-set penalty, after reward
+        normalisation; the bitsets are 32-bit words in int64."""
+        if not cfg.cycle_penalty:
+            return train_reward, alo, ahi
+        a = action.to(torch.int64)
+        low = a < 32
+        sh = a & 31
+        seen = ((torch.where(low, alo, ahi) >> sh) & 1) != 0
+        shaped = train_reward - cfg.cycle_penalty * (seen & (raw <= 0.0)).to(_F32)
+        bit = torch.ones_like(a) << sh
+        nlo = alo | torch.where(low, bit, 0)
+        nhi = ahi | torch.where(low, 0, bit)
+        reset = (raw > 0.0) | done
+        return shaped, torch.where(reset, 0, nlo), torch.where(reset, 0, nhi)
+
+    def rollout(net, env_states, key, obs_stats, ret_stats, ret_carry):
+        """Returns (env_states, traj, raw rewards, rets, ret_carry, last
+        observation (raw), last mask)."""
+        T, E = cfg.rollout_len, ret_carry.shape[0]
+        keys = KR.split_keys(key, T)
+        if not fused:       # a step's key splits into (k_act, k_step)
+            keys = [KR.split_keys(k, 1)[0] for k in keys]
+        buf = {
+            "obs": torch.empty(T, E, hooks.obs_dim, dtype=store_dt, device=dev),
+            "mask": torch.empty(T, E, hooks.n_actions, dtype=torch.bool, device=dev),
+            "action": torch.empty(T, E, dtype=torch.int32, device=dev),
+            **{k: torch.empty(T, E, device=dev) for k in ("log_prob", "value", "reward",
+                                                           "raw", "rets")},
+            "done": torch.empty(T, E, dtype=torch.bool, device=dev)}
+        prev_a = torch.full((E,), -1, dtype=torch.int32, device=dev)
+        alo = ahi = torch.zeros(E, dtype=torch.int64, device=dev)
+        if fused:
+            obs, mask = observe_p(env_states)
+        for t, k in enumerate(keys):
+            if not fused:
+                obs, mask = hooks.observe(env_states), hooks.action_mask(env_states)
+            if cfg.normalize_obs:
+                obs = normalize(obs_stats, obs)
+            logits, value = net(obs, mask)
+            if fused:
+                action, log_prob = sample_p(k, logits)
+                env_states, raw, done, next_obs, next_mask = step_p(env_states, action)
+            else:
+                action, log_prob = categorical(k, logits)
+                env_states, raw, done = hooks.step_autoreset(env_states, action)
+                raw = raw.to(_F32)
+            reward = shape_reward(raw, action, prev_a)
+            prev_a = torch.where(done, -1, action).to(torch.int32)
+            ret_carry = ret_carry * cfg.gamma * (1.0 - done.to(_F32)) + reward
+            train_reward = (normalize_reward(ret_stats, reward) if cfg.normalize_reward
+                            else reward)
+            train_reward, alo, ahi = cycle_shape(train_reward, raw, action, done, alo, ahi)
+            for name, v in (("obs", obs), ("mask", mask), ("action", action),
+                            ("log_prob", log_prob), ("value", value),
+                            ("reward", train_reward), ("raw", raw), ("done", done),
+                            ("rets", ret_carry)):
+                buf[name][t].copy_(v)
+            if fused:
+                obs, mask = next_obs, next_mask
+        if not fused:
+            obs, mask = hooks.observe(env_states), hooks.action_mask(env_states)
+        traj = Transition(*(buf[k] for k in Transition._fields))
+        return env_states, traj, buf["raw"], buf["rets"], ret_carry, obs, mask
+
+    def update_fn(ts: TrainState, record: dict | None = None):
+        events = record.setdefault("events", []) if record is not None else None
+
+        def mark(stage):
+            if events is not None and dev.type == "cuda":
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append((stage, ev))
+
+        mark("start")
+        key, k_roll, k_perm, k_reset = KR.split_keys(ts.key, 4)
+        env_states, ret_carry0 = ts.env_states, ts.ret_carry
+        E = ret_carry0.shape[0]
+        net = ts.params
+        with torch.no_grad():
+            if cfg.reset_envs_every:
+                lanes = ((ts.update_idx + torch.arange(E, device=dev))
+                         % cfg.reset_envs_every) == 0
+                env_states = _where_lanes(lanes, reset_envs(_keys(k_reset, E, dev)), env_states)
+                ret_carry0 = torch.where(lanes, 0.0, ret_carry0)
+            env_states, traj, raw, rets, ret_carry, last_obs, last_mask = rollout(
+                net, env_states, k_roll, ts.obs_stats, ts.ret_stats, ret_carry0)
+            mark("collection")
+            obs_stats = (update_stats(ts.obs_stats, traj.obs.reshape(-1, hooks.obs_dim).to(_F32))
+                         if cfg.normalize_obs else ts.obs_stats)
+            ret_stats = (update_stats(ts.ret_stats, rets.reshape(-1))
+                         if cfg.normalize_reward else ts.ret_stats)
+            mark("stats")
+            if cfg.normalize_obs:
+                last_obs = normalize(ts.obs_stats, last_obs)
+            _, last_value = net(last_obs, last_mask)
+            adv, ret = gae(traj, last_value, cfg.gamma, cfg.gae_lambda)
+            mark("last value + GAE")
+        if record is not None:
+            record.update(traj=traj, raw=raw, rets=rets, adv=adv)
+
+        T = traj.action.shape[0]
+        if cfg.ent_coef_final >= 0.0 and cfg.total_updates > 0:
+            frac = np.clip(np.float32(ts.update_idx) / np.float32(cfg.total_updates),
+                           np.float32(0), np.float32(1))
+            ent_coef = float(np.float32(cfg.ent_coef)
+                             + np.float32(cfg.ent_coef_final - cfg.ent_coef) * frac)
+        else:
+            ent_coef = float(np.float32(cfg.ent_coef))
+        data = (traj, adv, ret)
+        params, opt, stop = param_list(net), ts.opt_state, False
+        rows = []
+        for k in KR.split_keys(k_perm, cfg.epochs):
+            kt = [torch.full((), w, dtype=torch.int64, device=dev) for w in k]
+            if cfg.env_shuffle:
+                perm = KR.permutation(*kt, E).view(cfg.minibatches, -1)
+                pick = [lambda x, idx=idx: x[:, idx].reshape((-1,) + x.shape[2:])
+                        for idx in perm]
+            else:
+                perm = KR.permutation(*kt, T * E).view(cfg.minibatches, -1)
+                pick = [lambda x, idx=idx: x.reshape((T * E,) + x.shape[2:])[idx]
+                        for idx in perm]
+            for take in pick:
+                t, a, r = data
+                batch = (Transition(*(take(x) for x in t)), take(a), take(r))
+                total, aux = ppo_loss(net, batch, ent_coef, cfg)
+                if cfg.kl_target > 0.0:
+                    stop = stop or bool(aux[-1] > cfg.kl_target)
+                if not stop:
+                    grads = torch.autograd.grad(total, params)
+                    opt = adam_update(params, grads, opt, lr_at(opt.count), cfg.max_grad_norm)
+                rows.append(torch.stack([total.detach(), *aux, flags[stop]]))
+        loss, pg, vf, ent, approx_kl, kl_skipped = torch.stack(rows).mean(0)
+        mark("shuffle + SGD")
+        out = TrainState(params=net, opt_state=opt, env_states=env_states, key=key,
+                         update_idx=ts.update_idx + 1, obs_stats=obs_stats,
+                         ret_stats=ret_stats, ret_carry=ret_carry)
+        return out, {"loss": loss, "pg_loss": pg, "vf_loss": vf, "entropy": ent,
+                     "mean_reward": raw.mean(), "episodes": traj.done.sum(),
+                     "approx_kl": approx_kl, "kl_skipped": kl_skipped}
+
+    def policy_fn(params, obs, mask):
+        return params(obs, mask)
+
+    return init_fn, update_fn, policy_fn
+
+
+# ---------------------------------------------------------------------------
+# Envs, the reference's state, the training loop
+# ---------------------------------------------------------------------------
+
+
+def sim_env_hooks() -> EnvHooks:
+    """The single-blind SimEnv (``engine/sim_env.py``)."""
+    from balatro_gym_tpu_torch.engine import sim_env
+    return EnvHooks(reset=sim_env.reset, step_autoreset=sim_env.step_autoreset,
+                    observe=sim_env.observe,
+                    action_mask=sim_env.action_mask, n_actions=10, obs_dim=sim_env.OBS_DIM)
+
+
+def full_env_hooks() -> EnvHooks:
+    """The flagship Discrete(60) env. Its ``step_autoreset`` and ``step``
+    are not ported (ROADMAP queue 1 item 4): it trains with
+    ``fused_rollout=True``."""
+    from balatro_gym_tpu_torch.engine import full_env
+    from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
+    return EnvHooks(reset=full_env.reset, step_autoreset=None,
+                    observe=full_env.observe_vector, action_mask=full_env.action_mask,
+                    n_actions=FP.N_ACTIONS, obs_dim=FP.OBS_DIM)
+
+
+def _flax_leaves(net, tree):
+    """A flax-structured tree of ``[in, out]`` kernels and biases (numpy)
+    as tensors in :func:`param_list` order."""
+    dense = tree["params"]
+    out = []
+    for i, lin in enumerate(net.dense_layers()):
+        layer = dense[f"Dense_{i}"]
+        out += [torch.tensor(np.asarray(layer["bias"], np.float32)),
+                torch.tensor(np.asarray(layer["kernel"], np.float32).T.copy())]
+    return out
+
+
+def load_reference_state(hooks: EnvHooks, cfg: PPOConfig, ref: dict, *, device=None):
+    """The reference's ``TrainState``, given as numpy arrays, as the port's.
+
+    ``ref`` holds ``params`` (the flax param dict), ``mu`` and ``nu``
+    (optax's Adam moments, trees of the same structure), ``count`` (Adam's
+    step count), ``obs_stats`` and ``ret_stats`` (each ``(mean, var,
+    count)``), ``ret_carry``, ``key`` (``jax.random.key_data``: two
+    words), ``update_idx`` and ``env_states``: the packed rows ``{"cards",
+    "ints", "rng"}`` of ``pack_full_state`` for the fused path, else the
+    SimEnvState's fields."""
+    _check(hooks, cfg)
+    dev = run_device((), device)
+    net = load_flax_params(_make_net(hooks, cfg, None), ref["params"]).to(dev)
+    mu, nu = (_flax_leaves(net, ref[k]) for k in ("mu", "nu"))
+    if cfg.fused_rollout:
+        env = ref["env_states"]
+        env_states = {
+            "cards": torch.as_tensor(np.asarray(env["cards"], np.int32), device=dev),
+            "ints": torch.as_tensor(np.asarray(env["ints"], np.int32), device=dev),
+            "rng": torch.as_tensor(np.asarray(env["rng"]).astype(np.uint32).view(np.int32),
+                                   device=dev)}
+    else:
+        from balatro_gym_tpu_torch.engine import sim_env
+        env_states = sim_env.state_from_numpy(ref["env_states"], device=dev)
+
+    def stats(t):
+        return RunningStats(*(torch.tensor(np.asarray(x, np.float32), device=dev) for x in t))
+
+    return TrainState(
+        params=net, opt_state=AdamState(int(ref["count"]), [m.to(dev) for m in mu],
+                                        [v.to(dev) for v in nu]),
+        env_states=env_states, key=tuple(int(w) for w in np.asarray(ref["key"])),
+        update_idx=int(ref["update_idx"]), obs_stats=stats(ref["obs_stats"]),
+        ret_stats=stats(ref["ret_stats"]),
+        ret_carry=torch.tensor(np.asarray(ref["ret_carry"], np.float32), device=dev))
+
+
+def train(num_updates: int = 16, cfg: PPOConfig | None = None, seed: int = 0,
+          hooks: EnvHooks | None = None, log_every: int = 0, *, device=None):
+    """Training on one device (default: the card). Returns (TrainState,
+    last metrics)."""
+    cfg = cfg or PPOConfig()
+    hooks = hooks or sim_env_hooks()
+    init_fn, update_fn, _ = make_ppo(hooks, cfg, device=device)
+    ts = init_fn([int(w) for w in KR.seed_key(seed, device="cpu")])
+    metrics = None
+    for i in range(num_updates):
+        ts, metrics = update_fn(ts)
+        if log_every and (i + 1) % log_every == 0:
+            print(f"update {i + 1}: { {k: float(v) for k, v in metrics.items()} }")
+    return ts, metrics

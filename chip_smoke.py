@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's rollouts on one CUDA card and check them.
+"""Run the PyTorch port's rollouts, kernels and trainer on one CUDA card
+and check them.
 
     python3 chip_smoke.py          # from the repository root; one card, nvcc
 
@@ -12,11 +13,14 @@ csrc/fused_full_rollout.cu) at 131072 envs x 256 steps, actions sampled on
 the card in both. The policy collection
 (``ops.fused_policy_rollout.collect_policy_fused``, kernels K3a, K3b and the
 sampler) runs at bench.py's ``policy_collect_steps_per_sec`` shape, 8192
-envs x 256 steps with ``ActorCritic(256, 256)``. Phases, each printed on its
-own line; any failure raises and the run exits non-zero:
+envs x 256 steps with ``ActorCritic(256, 256)``; the PPO trainer
+(``train.ppo.make_ppo``) runs the ``fast_decay`` recipe, 8192 envs x 128
+steps an update; the hand histograms (K5) and the ALU ceiling probe (K6)
+run through their own entry points. Phases, each printed on its own line;
+any failure raises and the run exits non-zero:
 
 1. device: the card, its power limit, nvcc and torch;
-2. build: nvcc builds the three kernel sources of csrc/ into
+2. build: nvcc builds the five kernel sources of csrc/ into
    build/kernels/, one process each, started together, and prints each
    kernel's registers, stack and spills;
 3. sim main path: one rollout at the bench shape with the launch counter
@@ -61,15 +65,51 @@ own line; any failure raises and the run exits non-zero:
     versions, and of the plain collection at 8192 x 4; the profiler gives
     each kernel's card time per launch and, over a 16-step collection, the
     card's idle share and card time per step; each kernel's bound (bytes
-    over 3.35 TB/s or integer operations over the INT32 rate) is printed
-    with the one that binds.
+    over 3.35 TB/s or integer operations over the data sheet's INT32 rate)
+    is printed with the one that binds;
+13. hand histograms (K5, csrc/hand_histograms.cu): its entry point
+    ``ops.hand_histograms.hand_histograms`` at 1,048,576 envs of seeded
+    cards with ranks in [-1, 17] and suits in [-1, 9] (some outside every
+    bin), the launch counter reset before and read after; kernel == plain
+    bit for bit; median of 5 CUDA-event samples of 20 back-to-back calls;
+14. ALU ceiling (K6, csrc/alu_ceiling.cu): kernel == plain x 128 rounds at
+    2 seeded tiles and on the probe's own inputs at both its shapes; the
+    probe's entry point ``ops.alu_ceiling.main`` (launch counter reset
+    before and read after) measures the int32 operation rate at the
+    reference script's shape (64 tiles) and at a saturating one (1,056
+    tiles, four times the card's 132 x 2,048 thread slots), and reads the
+    SASS of the kernel's loop; every kernel's bound is printed under the
+    data-sheet INT32 rate and under this measured one, which is the higher
+    and so gives the bound of record (``bound_ms``), but for K6's own: its
+    loop's SASS over the card's issue limit (132 SMs x 128 lanes x 1.98
+    GHz);
+15. trainer main path: ``train.ppo.make_ppo`` on the flagship env with the
+    ``fast_decay`` recipe of scripts/train_headline_r04.py (8192 envs x 128
+    steps, bf16, env_shuffle, 1 epoch, 4 minibatches, lr and entropy decay
+    over 5 updates, ``ActorCritic(256, 256)`` from ``init_fn``), 5 updates
+    with the collection's launch counters reset before and read after (K3b
+    1, K3a 128, sampler 128 an update); every recorded action legal under
+    its mask, metrics finite, parameters moved, episodes > 0;
+16. trainer parity: at 1024 envs x 8 steps, 2 epochs, 2 minibatches, from a
+    mid-game state, the fused update against the same update over the
+    kernels' plain versions on the card (bf16 with env_shuffle, and float32
+    with the flat shuffle): trajectories and packed state bit for bit but
+    the sampler's log-probs (within 1e-6, its contract), parameters within
+    1e-6, metrics within 1e-5 relative;
+17. trainer timing: median of 5 updates at 8192 x 128 after a warm-up, as
+    PPO env-steps/s; one update split into its stages (collection, stats,
+    last value + GAE, shuffle + SGD) by CUDA events; the card's idle share
+    of an update from the profiler's card time against the unprofiled
+    update time.
 
 Float32 matmuls run in full float32 (``allow_tf32`` stays False). The last
-two lines are the kernels' JSON record and the result line.
+three lines are the trainer's JSON record, the kernels' JSON record (each
+kernel's bound under both INT32 rates) and the result line.
 Imports torch and the port only; the machine with the card has no JAX.
 """
 from __future__ import annotations
 
+import copy
 import json
 import re
 import statistics
@@ -82,12 +122,15 @@ import torch
 
 from balatro_gym_tpu_torch.core.constants import Phase
 from balatro_gym_tpu_torch.engine import sim_env
+from balatro_gym_tpu_torch.ops import alu_ceiling as AC
 from balatro_gym_tpu_torch.ops import cuda_build
 from balatro_gym_tpu_torch.ops import fused_full_battery as BAT
 from balatro_gym_tpu_torch.ops import fused_full_rollout as FF
 from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
 from balatro_gym_tpu_torch.ops import fused_rollout as FR
+from balatro_gym_tpu_torch.ops import hand_histograms as HH
 from balatro_gym_tpu_torch.ops import kernel_rng as KR
+from balatro_gym_tpu_torch.train import ppo as TP
 from balatro_gym_tpu_torch.train.networks import ActorCritic
 
 N_ENVS, N_STEPS = 131072, 256          # bench.py's headline shape
@@ -108,13 +151,28 @@ POLICY_ENVS, POLICY_STEPS = 8192, 256  # bench.py's policy_collect_steps_per_sec
 POLICY_CHECK_STEPS = 16                # kernels == plain along this many main-path steps
 POLICY_PLAIN_STEPS = 4
 LOG1P_ROW = FP.OBS_DIM - 6             # log1p(chips_needed) / 10: within 1 ulp
+HIST_ENVS = 1 << 20                    # K5 at 1,048,576 envs
+ALU_CHECK_TILES = 2
+# scripts/train_headline_r04.py's fast_decay recipe, 5 updates
+TRAIN = dict(n_envs=8192, rollout_len=128, epochs=1, minibatches=4, fused_rollout=True,
+             bf16_compute=True, env_shuffle=True, total_updates=5, ent_coef_final=5e-4,
+             lr_final=5e-5)
+TRAIN_UPDATES = 5
+PARITY = dict(n_envs=1024, rollout_len=8, epochs=2, minibatches=2, fused_rollout=True,
+              total_updates=5, ent_coef_final=5e-4, lr_final=5e-5)
+PARAM_ATOL, METRIC_RTOL = 1e-6, 1e-5    # the CPU tests' tolerances (tests/test_torch_ppo.py)
 
 # The least time the card could take: NVIDIA's data-sheet HBM rate,
 # 3.35 TB/s; INT32 at 132 SMs x 64 INT32 lanes x 1.98 GHz (H100 SXM, Hopper
-# white paper). A Threefry-2x32 hash is 75 integer operations: 20 rounds of
+# white paper), until phase 14 measures the card's own INT32 rate with K6
+# (above this one: the compiler spreads integer work over the FMA pipe as
+# IMAD and VIADD). A Threefry-2x32 hash is 75 integer operations: 20 rounds of
 # (add, rotate, xor), 5 key injections of 2 adds, 4 set-up ops, 1 xor.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# The issue limit: 4 schedulers an SM each issue one 32-lane warp
+# instruction a clock, so 132 x 128 thread-instructions at 1.98 GHz.
+ISSUE_PER_S = 132 * 128 * 1.98e9
 THREEFRY_OPS = 75
 PACKED_BYTES = (6 * 64 + FF.NI + FF.NR) * 4      # one env's packed state
 
@@ -157,11 +215,12 @@ def cuda_ms(fn, calls=1, samples=5):
     return statistics.median(times), times
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, int32_rate=INT32_OPS_PER_S):
     """(least ms, what binds): the bytes a function must move over the HBM
-    rate against its integer operations over the INT32 rate."""
+    rate against its integer operations over an INT32 rate (the data
+    sheet's unless given)."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / INT32_OPS_PER_S * 1e3
+    by_ops = n_ops / int32_rate * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -176,7 +235,8 @@ def phase_device():
     return smi
 
 
-KERNEL_SOURCES = ("fused_rollout.cu", "fused_full_rollout.cu", "fused_policy_rollout.cu")
+KERNEL_SOURCES = ("fused_rollout.cu", "fused_full_rollout.cu", "fused_policy_rollout.cu",
+                  "hand_histograms.cu", "alu_ceiling.cu")
 
 
 def ptxas_summary(text):
@@ -581,6 +641,16 @@ def card_profile(fn):
     return 1.0 - busy / span, by_name
 
 
+def policy_work(n):
+    """(bytes, integer operations) of one launch of K3a, K3b and the sampler
+    at ``n`` envs: the packed state read (and written by K3a), the action,
+    reward and done, the observation and mask rows; 60 Threefry hashes an
+    env for the sampler."""
+    return {"K3a": (n * (2 * PACKED_BYTES + 4 + 4 + 1 + 4 * FP.OBS_DIM + FP.N_ACTIONS), 0),
+            "K3b": (n * (PACKED_BYTES + 4 * FP.OBS_DIM + FP.N_ACTIONS), 0),
+            "sampler": (n * (4 * FP.N_ACTIONS + 4 + 4), n * FP.N_ACTIONS * THREEFRY_OPS)}
+
+
 def phase_policy_timing(smi, net, mid):
     st = FF.default_reset(1, POLICY_ENVS, DEV)
     n0 = policy_counts()
@@ -628,11 +698,7 @@ def phase_policy_timing(smi, net, mid):
     idle_run = None if card_step_ms is None else max(0.0, 1.0 - card_step_ms / step_ms)
 
     n = POLICY_ENVS
-    bounds = {
-        "K3a": bound(n * (2 * PACKED_BYTES + 4 + 4 + 1 + 4 * FP.OBS_DIM + FP.N_ACTIONS), 0),
-        "K3b": bound(n * (PACKED_BYTES + 4 * FP.OBS_DIM + FP.N_ACTIONS), 0),
-        "sampler": bound(n * (4 * FP.N_ACTIONS + 4 + 4), n * FP.N_ACTIONS * THREEFRY_OPS),
-    }
+    bounds = {k: bound(*w) for k, w in policy_work(n).items()}
     rate = n * POLICY_STEPS / (coll_ms / 1e3)
     fmt = ", ".join
 
@@ -644,7 +710,7 @@ def phase_policy_timing(smi, net, mid):
         if tm["plain"] is not None:
             txt += f", plain {tm['plain'][0]:.3f} ms"
         if name in bounds:
-            txt += f", bound {bounds[name][0] * 1e3:.2f} us ({bounds[name][1]})"
+            txt += f", bound {bounds[name][0] * 1e3:.2f} us ({bounds[name][1]}, data-sheet INT32)"
         return txt
 
     log("12 policy timing", f"collection {n}x{POLICY_STEPS}: median {coll_ms:.3f} ms "
@@ -665,6 +731,219 @@ def phase_policy_timing(smi, net, mid):
             "rate": rate, "idle": idle_run, "idle_profiled": idle}
 
 
+def hist_work(n):
+    """(bytes, operations) of K5 at ``n`` envs: 8 int32 ranks, 8 int32
+    suits and 8 mask bytes read, 16 + 8 + 1 float32 written an env; 24
+    compares and 24 adds a card."""
+    return n * (8 * 4 + 8 * 4 + 8 + (HH.R_PAD + HH.S_PAD + 1) * 4), n * 8 * 48
+
+
+def phase_hist(smi):
+    g = torch.Generator(device=DEV).manual_seed(13)
+    n = HIST_ENVS
+    ranks = torch.randint(-1, 18, (n, 8), generator=g, device=DEV, dtype=torch.int32)
+    suits = torch.randint(-1, 10, (n, 8), generator=g, device=DEV, dtype=torch.int32)
+    mask = torch.rand(n, 8, generator=g, device=DEV) < 0.6
+    HH.hand_histograms.launches = 0
+    out = HH.hand_histograms(ranks, suits, mask, device=DEV)
+    torch.cuda.synchronize()
+    launches = HH.hand_histograms.launches
+    assert launches == 1, launches
+    err = 0.0
+    for name, k, p in zip(("rank_hist", "suit_hist", "chips"), out,
+                          HH.hand_histograms_reference(ranks, suits, mask)):
+        err = max(err, float((k.double() - p.double()).abs().max()))
+        if not torch.equal(k, p):
+            raise AssertionError(f"K5 {name} differs in {int((k != p).sum())} entries")
+    outside = int((((ranks < 0) | (ranks > 15)) & mask).sum())
+    counted = int(out[0].sum())
+    assert counted == int(mask.sum()) - outside, "an out-of-range rank was counted"
+    calls = 20
+    k_ms, k_all = cuda_ms(lambda: HH.hand_histograms(ranks, suits, mask, device=DEV),
+                          calls=calls)
+    p_ms, p_all = cuda_ms(lambda: HH.hand_histograms_reference(ranks, suits, mask))
+    b = bound(*hist_work(n))
+    log("13 hand histograms", f"ok: hand_histograms {n} envs launches={launches}; kernel == "
+        f"plain bitwise ({outside} masked cards with a rank outside [0, 16) counted in no "
+        f"bin); kernel median {k_ms * 1e3:.2f} us a call ({calls} back-to-back calls, samples "
+        f"{', '.join(f'{t * 1e3:.2f}' for t in k_all)}), bound {b[0] * 1e3:.2f} us ({b[1]}), "
+        f"plain median {p_ms:.3f} ms (samples {', '.join(f'{t:.3f}' for t in p_all)}) [{smi}]")
+    return {"launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "work": hist_work(n)}
+
+
+def phase_alu(smi):
+    g = torch.Generator(device=DEV).manual_seed(14)
+    seeded = torch.randint(-2 ** 31, 2 ** 31 - 1, (ALU_CHECK_TILES, 8, 8, 128), generator=g,
+                           device=DEV, dtype=torch.int64).to(torch.int32)
+    # Kernel == plain on seeded values and on the probe's own inputs at both
+    # of its shapes; these launches come before the counted run.
+    err = 0.0
+    for what, x in ((f"{ALU_CHECK_TILES} seeded tiles", seeded),
+                    *((f"the probe's {n} tiles", AC.probe_input(n, DEV))
+                      for n in (AC.REFERENCE_TILES, AC.SATURATING_TILES))):
+        k, p = AC.alu_chains(x, AC.ROUNDS, device=DEV), AC.alu_chains_reference(x, AC.ROUNDS)
+        err = max(err, float((k.long() - p.long()).abs().max()))
+        if not torch.equal(k, p):
+            raise AssertionError(f"K6 differs from its plain version at {what} in "
+                                 f"{int((k != p).sum())} entries")
+    AC.alu_chains.launches = 0
+    res = AC.main(["--rounds", str(AC.ROUNDS), "--reps", "200"])
+    torch.cuda.synchronize()
+    launches = AC.alu_chains.launches
+    assert launches == 2 * (1 + 3 * 200), launches
+    sat = res["shapes"]["saturating"]
+    xs = AC.probe_input(AC.SATURATING_TILES, DEV)
+    p_ms, _ = cuda_ms(lambda: AC.alu_chains_reference(xs, AC.ROUNDS), samples=3)
+    sass = res["sass_loop"]
+    rate = res["int32_ops_per_s"]["saturating"]
+    log("14 alu ceiling", f"ok: kernel == plain bitwise at {ALU_CHECK_TILES} seeded tiles and "
+        f"on the probe's inputs at {AC.REFERENCE_TILES} and {AC.SATURATING_TILES} tiles, x "
+        f"{AC.ROUNDS} rounds; alu_ceiling.main launches={launches}: int32 source ops/s "
+        f"{res['int32_ops_per_s']['reference_shape']:.4g} at {AC.REFERENCE_TILES} tiles "
+        f"({res['shapes']['reference_shape']['ms_per_launch'] * 1e3:.2f} us a launch), "
+        f"{rate:.4g} at {AC.SATURATING_TILES} tiles ({sat['ms_per_launch'] * 1e3:.2f} us a "
+        f"launch) = {rate / INT32_OPS_PER_S:.3f} x the data sheet's {INT32_OPS_PER_S:.4g}; "
+        f"loop body {sass['instructions']} SASS for 32 chain-rounds = "
+        f"{sass['per_chain_round']:.3f} a chain-round against {AC.OPS_PER_ROUND} source ops "
+        f"({sass['opcodes']}); plain at {AC.SATURATING_TILES} tiles {p_ms:.1f} ms [{smi}]")
+    chains = AC.SATURATING_TILES * 8192
+    work = (2 * 4 * chains, AC.source_ops(AC.SATURATING_TILES, AC.ROUNDS))
+    return {"launches": launches, "max_abs_err": err, "ms": sat["ms_per_launch"],
+            "plain_ms": p_ms, "sass_ops": chains * AC.ROUNDS * sass["per_chain_round"],
+            "ms_reference_shape": res["shapes"]["reference_shape"]["ms_per_launch"],
+            "rate": rate, "rate_reference_shape": res["int32_ops_per_s"]["reference_shape"],
+            "sass": sass, "work": work}
+
+
+def legal_count(traj):
+    """Recorded actions not legal under the mask their step consumed (an
+    env with no legal action takes any), summed on the card."""
+    ok = traj.mask.gather(2, traj.action.long()[..., None])[..., 0] | ~traj.mask.any(2)
+    return (~ok).sum()
+
+
+def phase_train_main():
+    cfg = TP.PPOConfig(**TRAIN)
+    init_fn, update_fn, _ = TP.make_ppo(TP.full_env_hooks(), cfg, device=DEV)
+    ts = init_fn([int(w) for w in KR.seed_key(0, device="cpu")])
+    p0 = [p.detach().clone() for p in TP.param_list(ts.params)]
+    illegal = torch.zeros((), dtype=torch.int64, device=DEV)
+    episodes = torch.zeros((), dtype=torch.int64, device=DEV)
+    history = []
+    FP.observe_fused.launches = FP.step_fused.launches = FP.sample_fused.launches = 0
+    for _ in range(TRAIN_UPDATES):
+        rec = {}
+        ts, m = update_fn(ts, record=rec)
+        illegal += legal_count(rec["traj"])
+        episodes += rec["traj"].done.sum()
+        history.append(m)
+    torch.cuda.synchronize()
+    launches = policy_counts()
+    T = cfg.rollout_len
+    want = {"K3b": TRAIN_UPDATES, "K3a": TRAIN_UPDATES * T, "sampler": TRAIN_UPDATES * T}
+    assert launches == want, (launches, want)
+    assert int(illegal) == 0, f"{int(illegal)} sampled actions were illegal"
+    hist = [{k: float(v) for k, v in m.items()} for m in history]
+    assert all(np.isfinite(v) for m in hist for v in m.values()), hist
+    moved = max(float((p.detach() - q).abs().max()) for p, q in zip(TP.param_list(ts.params), p0))
+    assert moved > 0, "the parameters did not move"
+    assert int(episodes) > 0, "no episode ended"
+    log("15 trainer main path", f"ok: make_ppo(full_env_hooks(), fast_decay) "
+        f"{cfg.n_envs}x{T}, ActorCritic(256, 256), {TRAIN_UPDATES} updates, launches={launches}; "
+        f"every action legal; {int(episodes)} episodes; params moved (max {moved:.3g}); "
+        f"metrics by update: {[{k: round(v, 5) for k, v in m.items()} for m in hist]}")
+    return ts, update_fn, launches, hist
+
+
+def phase_train_parity():
+    errs = {"params": 0.0, "metrics_rel": 0.0, "log_prob": 0.0}
+    for bf16, shuffle in ((True, True), (False, False)):
+        cfg = TP.PPOConfig(**PARITY, bf16_compute=bf16, env_shuffle=shuffle)
+        init_fn, fused, _ = TP.make_ppo(TP.full_env_hooks(), cfg, device=DEV)
+        plain_hooks = TP.full_env_hooks()._replace(
+            fused_ops=(FP.observe_rows_reference, FP.sample, FP.step_rows_reference))
+        _, plain, _ = TP.make_ppo(plain_hooks, cfg, device=DEV)
+        ts = init_fn([int(w) for w in KR.seed_key(1, device="cpu")])
+        for _ in range(2):                                 # a mid-game start
+            ts, _ = fused(ts)
+        tp = copy.deepcopy(ts)
+        rk, rp = {}, {}
+        ts, mk = fused(ts, record=rk)
+        tp, mp = plain(tp, record=rp)
+        torch.cuda.synchronize()
+        what = f"trainer parity (bf16={bf16}, env_shuffle={shuffle})"
+        for name in TP.Transition._fields:
+            a, b = getattr(rk["traj"], name), getattr(rp["traj"], name)
+            if name == "log_prob":                  # the sampler's contract: within 1e-6
+                errs["log_prob"] = max(errs["log_prob"], float((a - b).abs().max()))
+                assert errs["log_prob"] <= 1e-6, f"{what}: log_prob off by {errs['log_prob']}"
+            elif not torch.equal(a, b):
+                raise AssertionError(f"{what}: trajectory {name} differs in "
+                                     f"{int((a != b).sum())} entries")
+        assert torch.equal(rk["raw"], rp["raw"]), f"{what}: raw rewards differ"
+        for k in ("cards", "ints", "rng"):
+            assert torch.equal(ts.env_states[k], tp.env_states[k]), f"{what}: packed {k}"
+        d = max(float((a.detach() - b.detach()).abs().max())
+                for a, b in zip(TP.param_list(ts.params), TP.param_list(tp.params)))
+        r = max(abs(float(mk[k]) - float(mp[k])) / max(abs(float(mp[k])), 1e-30) for k in mk)
+        assert d <= PARAM_ATOL, f"{what}: params differ by {d}"
+        assert all(abs(float(mk[k]) - float(mp[k])) <= METRIC_RTOL * abs(float(mp[k])) + 1e-7
+                   for k in mk), f"{what}: metrics {mk} vs {mp}"
+        errs["params"], errs["metrics_rel"] = max(errs["params"], d), max(errs["metrics_rel"], r)
+    log("16 trainer parity", f"ok: {PARITY['n_envs']}x{PARITY['rollout_len']}, 2 epochs x 2 "
+        f"minibatches, bf16+env_shuffle and f32+flat shuffle: fused update == plain update "
+        f"(trajectories and packed state bitwise, the sampler's log-probs within "
+        f"{errs['log_prob']:.3g}), params max abs diff {errs['params']:.3g} "
+        f"(atol {PARAM_ATOL}), metrics max rel diff {errs['metrics_rel']:.3g}")
+    return errs
+
+
+def phase_train_timing(smi, ts, update_fn):
+    cfg = TP.PPOConfig(**TRAIN)
+    steps = cfg.n_envs * cfg.rollout_len
+    state = {"ts": update_fn(ts)[0]}                       # warm-up
+    torch.cuda.synchronize()
+
+    def one(record=None):
+        state["ts"], _ = update_fn(state["ts"], record=record)
+
+    times, host = [], []
+    for _ in range(5):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        one()
+        e1.record()
+        e1.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        times.append(e0.elapsed_time(e1))
+    upd_ms = statistics.median(times)
+    rec = {}
+    one(rec)
+    torch.cuda.synchronize()
+    ev = rec["events"]
+    stages = {name: ev[i - 1][1].elapsed_time(e) for i, (name, e) in enumerate(ev) if i}
+    idle_prof, by_name = card_profile(one)
+    card_ms = sum(map(sum, by_name.values())) if by_name else None
+    idle = None if card_ms is None else max(0.0, 1.0 - card_ms / upd_ms)
+    top = sorted(((sum(ds), len(ds), n) for n, ds in by_name.items()), reverse=True)[:8]
+    rate = steps / (upd_ms / 1e3)
+    log("17 trainer timing", f"update {cfg.n_envs}x{cfg.rollout_len} (fast_decay): median "
+        f"{upd_ms:.3f} ms (CUDA events; samples {', '.join(f'{t:.3f}' for t in times)}; host "
+        f"clock {statistics.median(host):.3f} ms) = {rate:.4g} PPO env-steps/s; stages of one "
+        f"update (ms): {', '.join(f'{k} {v:.3f}' for k, v in stages.items())}; "
+        + ("card activity not measured (no card activity in the profile)" if card_ms is None
+           else f"card time an update {card_ms:.3f} ms (profiler) -> card idle share "
+                f"{idle:.4f} of the unprofiled update ({idle_prof:.4f} of the profiled one); "
+                f"top kernels {[(n[:48], c, round(ms, 3)) for ms, c, n in top]} (launches, ms)")
+        + f" [{smi}]")
+    return {"update_ms": upd_ms, "update_ms_samples": times, "host_update_ms": host,
+            "env_steps_per_s": rate, "stages_ms": stages, "card_ms_per_update": card_ms,
+            "card_idle_share": idle, "card_idle_share_profiled": idle_prof,
+            "top_kernels": [{"name": n, "launches": c, "ms": ms} for ms, c, n in top]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -681,27 +960,35 @@ def main():
     policy_launches, net, st0, traj, final = phase_policy_main()
     policy_err, mid = phase_policy_parity(net, st0, traj, final, (fed_st, fed_script))
     pt = phase_policy_timing(smi, net, mid)
+    hist = phase_hist(smi)
+    alu = phase_alu(smi)
+    ts, update_fn, train_launches, train_hist = phase_train_main()
+    parity = phase_train_parity()
+    tt = phase_train_timing(smi, ts, update_fn)
 
-    k4_bound = bound(N_ENVS * ((FR.N_SCAL + 32 + 32 + 64) * 4 + (2 * FR.N_CARDS + 8 + 1) * 4),
-                     N_ENVS * (N_STEPS + 1) * THREEFRY_OPS)
-    k2_bound = bound(N_ENVS * (2 * PACKED_BYTES + 8), N_ENVS * (N_STEPS + 1) * THREEFRY_OPS)
+    # (bytes, integer operations) of each kernel's measured call
+    work = {"fused_rollout": (N_ENVS * ((FR.N_SCAL + 32 + 32 + 64) * 4
+                                        + (2 * FR.N_CARDS + 8 + 1) * 4),
+                              N_ENVS * (N_STEPS + 1) * THREEFRY_OPS),
+            "fused_full_rollout": (N_ENVS * (2 * PACKED_BYTES + 8),
+                                   N_ENVS * (N_STEPS + 1) * THREEFRY_OPS),
+            **{k: w for k, w in zip(("policy_step", "policy_observe", "policy_sample"),
+                                    policy_work(POLICY_ENVS).values())},
+            "hand_histograms": hist["work"], "alu_chains": alu["work"]}
     src = "balatro_gym_tpu_torch/csrc/"
     policy_src = src + "fused_policy_rollout.cu"
     kernels = [{
         "name": "fused_rollout", "route": "cuda", "source": src + "fused_rollout.cu",
         "replaces": "balatro_gym_tpu/ops/fused_rollout.py:126",
-        "launches": launches, "max_abs_err": err,
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
-        "library_ms": None,
+        "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
         "shape": [N_ENVS, N_STEPS], "plain_shape": [N_ENVS, 32],
-        "env_steps_per_s": k_rate, "plain_env_steps_per_s": p_rate, "gpu": smi}, {
+        "env_steps_per_s": k_rate, "plain_env_steps_per_s": p_rate}, {
         "name": "fused_full_rollout", "route": "cuda", "source": src + "fused_full_rollout.cu",
         "replaces": "balatro_gym_tpu/ops/fused_full_rollout.py:2299",
-        "launches": full_launches, "max_abs_err": full_err,
-        "ms": fk_ms, "plain_ms": fp_ms, "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
-        "library_ms": None, "kernel_alone_ms": fa_ms,
+        "launches": full_launches, "max_abs_err": full_err, "ms": fk_ms, "plain_ms": fp_ms,
+        "kernel_alone_ms": fa_ms,
         "shape": [N_ENVS, N_STEPS], "plain_shape": [N_ENVS, FULL_PLAIN_STEPS],
-        "env_steps_per_s": fk_rate, "plain_env_steps_per_s": fp_rate, "gpu": smi}]
+        "env_steps_per_s": fk_rate, "plain_env_steps_per_s": fp_rate}]
     for name, kname, replaces in (
             ("K3a", "policy_step", "balatro_gym_tpu/ops/fused_policy_rollout.py:174"),
             ("K3b", "policy_observe", "balatro_gym_tpu/ops/fused_policy_rollout.py:190"),
@@ -710,18 +997,57 @@ def main():
         call_ms = tm["call"][0]
         kernels.append({
             "name": kname, "route": "cuda", "source": policy_src, "replaces": replaces,
-            "launches": policy_launches[name], "max_abs_err": policy_err[name],
+            "launches": policy_launches[name], "trainer_launches": train_launches[name],
+            "max_abs_err": policy_err[name],
             "ms": tm["card_ms"] if tm["card_ms"] is not None else call_ms,
-            "plain_ms": tm["plain"][0], "bound_ms": pt["bounds"][name][0],
-            "bound_by": pt["bounds"][name][1], "library_ms": None,
+            "plain_ms": tm["plain"][0],
             "ms_from": "profiler" if tm["card_ms"] is not None else "events",
-            "call_ms": call_ms, "shape": [POLICY_ENVS], "gpu": smi})
+            "call_ms": call_ms, "shape": [POLICY_ENVS]})
     kernels[-3]["collection_ms"] = pt["coll_ms"]
     kernels[-3]["collection_shape"] = [POLICY_ENVS, POLICY_STEPS]
     kernels[-3]["plain_collection_ms"] = pt["plain_coll_ms"]
     kernels[-3]["plain_collection_shape"] = [POLICY_ENVS, POLICY_PLAIN_STEPS]
     kernels[-3]["card_idle_share"] = pt["idle"]
     kernels[-3]["card_idle_share_profiled"] = pt["idle_profiled"]
+    kernels.append({
+        "name": "hand_histograms", "route": "cuda", "source": src + "hand_histograms.cu",
+        "replaces": "balatro_gym_tpu/ops/pallas_kernels.py:44", "launches": hist["launches"],
+        "max_abs_err": hist["max_abs_err"], "ms": hist["ms"], "plain_ms": hist["plain_ms"],
+        "shape": [HIST_ENVS, 8]})
+    kernels.append({
+        "name": "alu_chains", "route": "cuda", "source": src + "alu_ceiling.cu",
+        "replaces": "scripts/vpu_ceiling.py:28", "launches": alu["launches"],
+        "max_abs_err": alu["max_abs_err"], "ms": alu["ms"], "plain_ms": alu["plain_ms"],
+        "ms_reference_shape": alu["ms_reference_shape"],
+        "shape": [AC.SATURATING_TILES, 8, 8, 128], "rounds": AC.ROUNDS,
+        "int32_ops_per_s": alu["rate"], "int32_ops_per_s_reference_shape":
+            alu["rate_reference_shape"], "sass_loop": alu["sass"]})
+    # The measured INT32 rate is above the data sheet's (K6 beats the data
+    # sheet's bound), so the bound of record divides integer source ops by
+    # the measured one; K6's own bound is its SASS over the issue limit, so
+    # that it does not rest on its own run.
+    lines = []
+    for k in kernels:
+        sheet, measured = bound(*work[k["name"]]), bound(*work[k["name"]], alu["rate"])
+        k.update(bound_ms=measured[0], bound_by=measured[1],
+                 bound_unit="int32 source ops over K6's measured source-op rate",
+                 bound_ms_datasheet_int32=sheet[0], bound_by_datasheet_int32=sheet[1],
+                 bound_ms_measured_int32=measured[0], library_ms=None, gpu=smi)
+        lines.append(f"{k['name']} {sheet[0] * 1e3:.2f} us ({sheet[1]}) / {measured[0] * 1e3:.2f}"
+                     f" us ({measured[1]})")
+    issue = bound(alu["work"][0], alu["sass_ops"], ISSUE_PER_S)
+    kernels[-1].update(bound_ms=issue[0], bound_by=issue[1],
+                       bound_unit="SASS of the loop over the issue limit")
+    log("14 alu ceiling", f"bounds under the data sheet's {INT32_OPS_PER_S:.4g} / the measured "
+        f"{alu['rate']:.4g} int32 ops/s (bytes at {HBM_BYTES_PER_S:.3g} B/s; the JSON's "
+        f"bound_ms is the second): " + "; ".join(lines) + f"; alu_chains' bound of record: "
+        f"{alu['sass_ops']:.4g} SASS over the issue limit {ISSUE_PER_S:.4g} a second = "
+        f"{issue[0] * 1e3:.2f} us ({issue[1]}), {issue[0] / alu['ms']:.3f} of its time")
+    trainer = {"config": TRAIN, "updates": TRAIN_UPDATES,
+               "launches_main_path": train_launches, "metrics_by_update": train_hist,
+               "parity_params_max_abs_diff": parity["params"],
+               "parity_metrics_max_rel_diff": parity["metrics_rel"], **tt, "gpu": smi}
+    print(json.dumps({"trainer": trainer}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
