@@ -942,34 +942,75 @@ __device__ void boss_on_drawn(State& s, TfKey k_boss) {
   remove_positions(s, hook & present);
 }
 
+// One stage (p, k) of Batcher's odd-even merge sort of the 64 words v, its
+// loops unrolled over compile-time bounds, so every comparator's slots are
+// constants and v stays in registers; then the stages after it, in order.
+template <int P, int K>
+__device__ __forceinline__ void merge_stages(uint32_t* v) {
+#pragma unroll
+  for (int j = K % P; j < kDeck - K; j += 2 * K)
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      const int x = i + j, y = i + j + K;
+      if (y < kDeck && x / (P * 2) == y / (P * 2)) {
+        const uint32_t lo = min(v[x], v[y]);
+        v[y] = max(v[x], v[y]);
+        v[x] = lo;
+      }
+    }
+  if constexpr (K > 1) merge_stages<P, K / 2>(v);
+  else if constexpr (P * 2 < kDeck) merge_stages<P * 2, P * 2>(v);
+}
+
+// Card c's priority word: its draw, with suit and rank in the low 6 bits.
+__device__ __forceinline__ uint32_t deck_word(TfKey dk, int c) {
+  return (tf_bits32(dk, (uint32_t)c) & 0xFFFFFFC0u) | (uint32_t)(((c / 13) << 4) | (c % 13));
+}
+
+// Deck slot d holds the card of sorted word w (pads past 52 stay empty).
+__device__ __forceinline__ void deal(State& s, int d, uint32_t w) {
+  s.rk[d] = d < 52 ? (int)(w & 15u) + 2 : 0;
+  s.su[d] = d < 52 ? (int)((w >> 4) & 3u) : 0;
+  s.en[d] = s.ed[d] = s.sl[d] = 0;
+}
+
 // Fresh episode: key folded with the step count, the deck shuffled by
 // sorting 52 packed priority words with Batcher's odd-even merge network.
+// kUnrolled sorts in registers (merge_stages): K3a's form, since a launch
+// lasts as long as its slowest warp, and the loops below over a local v
+// made a K3a launch in which any env resets ~100 us longer on an H100
+// (PERF.md). K2 keeps the loops: the unrolled form made its 131072-env
+// rollout 17% slower there.
+template <bool kUnrolled>
 __device__ void reset_state(State& s) {
   s.key = tf_fold_in(s.key, (uint32_t)s.sc);
   const TfKey dk = tf_fold_in(tf_fold_in(s.key, (uint32_t)ST_DECK), 0u);
   uint32_t v[kDeck];
-  for (int c = 0; c < 52; ++c)
-    v[c] = (tf_bits32(dk, (uint32_t)c) & 0xFFFFFFC0u) | (uint32_t)(((c / 13) << 4) | (c % 13));
-  for (int c = 52; c < kDeck; ++c) v[c] = 0xFFFFFFFFu;
+  if constexpr (kUnrolled) {
+#pragma unroll
+    for (int c = 0; c < kDeck; ++c) v[c] = c < 52 ? deck_word(dk, c) : 0xFFFFFFFFu;
+    merge_stages<1, 1>(v);
+#pragma unroll
+    for (int d = 0; d < kDeck; ++d) deal(s, d, v[d]);
+  } else {
+    for (int c = 0; c < 52; ++c) v[c] = deck_word(dk, c);
+    for (int c = 52; c < kDeck; ++c) v[c] = 0xFFFFFFFFu;
 #pragma unroll 1
-  for (int p = 1; p < kDeck; p *= 2)
+    for (int p = 1; p < kDeck; p *= 2)
 #pragma unroll 1
-    for (int k = p; k >= 1; k /= 2)
+      for (int k = p; k >= 1; k /= 2)
 #pragma unroll 1
-      for (int j = k % p; j < kDeck - k; j += 2 * k)
+        for (int j = k % p; j < kDeck - k; j += 2 * k)
 #pragma unroll 1
-        for (int i = 0; i < k && i < kDeck - j - k; ++i) {
-          const int x = i + j, y = i + j + k;
-          if (x / (p * 2) == y / (p * 2) && v[x] > v[y]) {
-            const uint32_t t = v[x];
-            v[x] = v[y];
-            v[y] = t;
+          for (int i = 0; i < k && i < kDeck - j - k; ++i) {
+            const int x = i + j, y = i + j + k;
+            if (x / (p * 2) == y / (p * 2) && v[x] > v[y]) {
+              const uint32_t t = v[x];
+              v[x] = v[y];
+              v[y] = t;
+            }
           }
-        }
-  for (int d = 0; d < kDeck; ++d) {
-    s.rk[d] = d < 52 ? (int)(v[d] & 15u) + 2 : 0;
-    s.su[d] = d < 52 ? (int)((v[d] >> 4) & 3u) : 0;
-    s.en[d] = s.ed[d] = s.sl[d] = 0;
+    for (int d = 0; d < kDeck; ++d) deal(s, d, v[d]);
   }
   s.al = (1ull << 52) - 1;
   s.ih = s.bp = 0;
@@ -1009,7 +1050,9 @@ __device__ void reset_state(State& s) {
   s.sc = 0;
 }
 
-// One step_autoreset. Returns the reward; sets done.
+// One step_autoreset. Returns the reward; sets done. kUnrolledReset: the
+// reset's form (see reset_state).
+template <bool kUnrolledReset>
 __device__ float step(State& s, int a, const float* ft, bool& done) {
   const bool over = s.ante > 100 || s.career > 1000000000 || s.done;
   float reward = over ? 0.f : -1.f;
@@ -1068,7 +1111,7 @@ __device__ float step(State& s, int a, const float* ft, bool& done) {
   done = over || term;
   s.done = done;
   s.sc += 1;
-  if (done) reset_state(s);
+  if (done) reset_state<kUnrolledReset>(s);
   return reward;
 }
 

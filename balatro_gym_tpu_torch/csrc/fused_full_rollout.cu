@@ -66,7 +66,7 @@ fused_full_rollout_kernel(const int* __restrict__ cards_in, const int* __restric
     const int a = use_actions ? actions[(size_t)t * B + e]
                               : sample_action(s, tf_bits32(child, (uint32_t)t));
     bool done = false;
-    tot = fadd(tot, step(s, a, ft, done));
+    tot = fadd(tot, step<false>(s, a, ft, done));
     epi += done;
   }
 

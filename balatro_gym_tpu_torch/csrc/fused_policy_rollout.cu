@@ -24,14 +24,27 @@
 // waits on latency, not on bandwidth. The sampler does integer work: 60
 // Threefry hashes of 20 rounds an env, 120 logf and 60 expf.
 //
-// What the design does about it: one thread per env, as K2. The state is
-// read into a per-thread State (local memory), stepped once by full_step's
-// step() and written back; every row is written with envs contiguous, so
-// stores coalesce; the observation and mask are written feature-major
-// ([189, B] f32, [60, B] bytes), and the wrapper hands out the transposed
-// views the policy's first matmul reads without a copy. The sampler keeps
-// one env's 60 logits in a thread, so the Gumbel argmax and the
-// log-softmax at the drawn action need no reduction across threads; it
+// What the design does about it: one thread per env, as K2; every row is
+// written with envs contiguous, so stores coalesce; the observation and mask
+// are written feature-major ([189, B] f32, [60, B] bytes), and the wrapper
+// hands out the transposed views the policy's first matmul reads without a
+// copy. K3b reads the state into a per-thread State (local memory). K3a, the
+// one launched every collection step, has a launch shape of its own:
+// * blocks of kStepBlock (32) threads, so that 8192 envs make 256 blocks and
+//   every one of the card's 132 SMs gets work (kBlock's 128 left 68 idle);
+// * the env's State (1,960 B) in dynamic shared memory, one slot a thread,
+//   62.7 KB a block: the step's runtime-indexed deck and hand slots are then
+//   on chip, where a local State took 255 registers, 3,552 B of stack and
+//   1.8 KB of spill stores. full_step.cuh's helpers take State&, so load_state,
+//   step and store_state run on the slot unchanged, and every bit is the
+//   same. The slot stride, 245 eight-byte units, is odd, so a field read by
+//   a warp at one offset meets at most 2-way bank conflicts;
+// * the autoreset's deck sort unrolled (step<true>, reset_state's unrolled
+//   form), its 64 words in registers: a launch lasts as long as its slowest
+//   warp, and on an H100 any warp with a resetting env paid ~100 us for the
+//   looped sort.
+// The sampler keeps one env's 60 logits in a thread, so the Gumbel argmax and
+// the log-softmax at the drawn action need no reduction across threads; it
 // reads the logits in the layout the policy's matmul wrote them (strides
 // passed in), so no copy is made.
 //
@@ -54,6 +67,13 @@
 namespace {
 
 constexpr int kObs = 189, kActions = 60;
+// K3a's launch shape (see above).
+constexpr int kStepBlock = 32;
+constexpr size_t kStepSmem = kStepBlock * sizeof(State);
+static_assert(sizeof(State) % 16 == 8, "an odd count of 8-byte units keeps bank conflicts 2-way");
+
+// K3a's dynamic shared memory: State slots of its block's threads.
+extern __shared__ __align__(16) unsigned char k3a_slots[];
 
 // The observation rows of a State (the reference's _obs_rows, the engine's
 // observe_vector): env e of B, row r at obs[r * B + e].
@@ -104,20 +124,20 @@ policy_observe_kernel(const int* __restrict__ cards, const int* __restrict__ int
 }
 
 // K3a.
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kStepBlock)
 policy_step_kernel(const int* __restrict__ cards_in, const int* __restrict__ ints_in,
                    const uint32_t* __restrict__ rng_in, const int* __restrict__ actions,
                    const float* __restrict__ ft, int* __restrict__ cards_out,
                    int* __restrict__ ints_out, uint32_t* __restrict__ rng_out,
                    float* __restrict__ reward_out, uint8_t* __restrict__ done_out,
                    float* __restrict__ obs, uint8_t* __restrict__ mask, int n_envs) {
-  const int e = blockIdx.x * kBlock + threadIdx.x;
+  const int e = blockIdx.x * kStepBlock + threadIdx.x;
   if (e >= n_envs) return;
   const size_t B = (size_t)n_envs;
-  State s;
+  State& s = reinterpret_cast<State*>(k3a_slots)[threadIdx.x];
   load_state(s, cards_in, ints_in, rng_in, e, B);
   bool done = false;
-  const float reward = step(s, actions[e], ft, done);
+  const float reward = step<true>(s, actions[e], ft, done);
   store_state(s, cards_out, ints_out, rng_out, e, B);
   reward_out[e] = reward;
   done_out[e] = done ? 1 : 0;
@@ -179,17 +199,44 @@ extern "C" int policy_observe_launch(const int* cards, const int* ints, const un
 
 // K3a: one fed step (actions [n_envs] i32; ftab the float tables of
 // fused_full_rollout_launch), then the packed state, reward [n_envs] f32,
-// done [n_envs] u8 and the observation and mask of the post-step state.
+// done [n_envs] u8 and the observation and mask of the post-step state. The
+// kernel's shared-memory limit is set on the first launch on each device.
 extern "C" int policy_step_launch(const int* cards_in, const int* ints_in,
                                   const unsigned int* rng_in, const int* actions,
                                   const float* ftab, int* cards_out, int* ints_out,
                                   unsigned int* rng_out, float* reward, unsigned char* done,
                                   float* obs, unsigned char* mask, int n_envs, void* stream) {
   if (n_envs <= 0) return (int)cudaSuccess;
-  policy_step_kernel<<<grid_of(n_envs), kBlock, 0, (cudaStream_t)stream>>>(
-      cards_in, ints_in, rng_in, actions, ftab, cards_out, ints_out, rng_out, reward, done,
-      obs, mask, n_envs);
+  static bool ready[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(policy_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kStepSmem);
+    if (err != cudaSuccess) return (int)err;
+    ready[dev] = true;
+  }
+  policy_step_kernel<<<(n_envs + kStepBlock - 1) / kStepBlock, kStepBlock, kStepSmem,
+                       (cudaStream_t)stream>>>(cards_in, ints_in, rng_in, actions, ftab,
+                                               cards_out, ints_out, rng_out, reward, done,
+                                               obs, mask, n_envs);
   return (int)cudaGetLastError();
+}
+
+// K3a's launch shape and what the compiler gave it: out[0] threads a block,
+// out[1] dynamic shared bytes a block, out[2] registers a thread, out[3]
+// local (stack) bytes a thread.
+extern "C" int policy_step_info(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, policy_step_kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = kStepBlock;
+  out[1] = (int)kStepSmem;
+  out[2] = a.numRegs;
+  out[3] = (int)a.localSizeBytes;
+  return (int)cudaSuccess;
 }
 
 // The sampler: logits [n_envs, 60] f32 with element strides (s_env, s_act)

@@ -1,5 +1,5 @@
-"""Scenario battery for checking the fused full-env rollout: state surgery
-and coverage-biased legal action scripts.
+"""Scenario battery for checking the fused full-env rollout: state surgery,
+coverage-biased legal action scripts and the autoreset batches of a step.
 
 Numpy twin of ``scripts/fused_full_common.py`` (the reference's validators
 use it), for machines without JAX: from the same state and the same numpy
@@ -19,6 +19,7 @@ import torch
 from balatro_gym_tpu_torch.engine import consumable_logic as CL
 from balatro_gym_tpu_torch.engine.full_env import FullEnvState
 from balatro_gym_tpu_torch.ops import boss as BB
+from balatro_gym_tpu_torch.ops.fused_full_rollout import S_ANTE
 
 # Consumable ids covering every sub-path of the consumable branch.
 CONS_IDS = [
@@ -123,3 +124,14 @@ def coverage(acts):
     """Count of the actions of each class in an action script."""
     hist = np.bincount(np.asarray(acts).reshape(-1), minlength=60)
     return {name: int(hist[a0:a1].sum()) for name, a0, a1 in ACTION_CLASSES}
+
+
+def reset_batches(packed):
+    """Two fed-step batches ``(packed, actions)`` from a packed state: the
+    no-op action 59 everywhere, so no env ends, and the same with ante 101
+    in every env, so every env takes the step's game-over branch and resets."""
+    ints = packed["ints"]
+    noop = torch.full((ints.shape[1],), 59, dtype=torch.int32, device=ints.device)
+    over = {k: v.clone() for k, v in packed.items()}
+    over["ints"][S_ANTE] = 101
+    return (packed, noop), (over, noop)

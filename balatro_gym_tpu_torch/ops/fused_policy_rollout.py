@@ -150,9 +150,22 @@ def _kernel_lib():
     lib.policy_observe_launch.argtypes = [_P] * 5 + [_INT, _P]
     lib.policy_step_launch.argtypes = [_P] * 12 + [_INT, _P]
     lib.policy_sample_launch.argtypes = [_P, _I64, _I64, _INT, _UINT, _UINT, _P, _P, _P]
-    for fn in (lib.policy_observe_launch, lib.policy_step_launch, lib.policy_sample_launch):
+    lib.policy_step_info.argtypes = [_P]
+    for fn in (lib.policy_observe_launch, lib.policy_step_launch, lib.policy_sample_launch,
+               lib.policy_step_info):
         fn.restype = ctypes.c_int
     return lib
+
+
+def step_kernel_shape():
+    """K3a's launch shape and what the compiler gave it, on the current
+    card: {"block": threads a block, "shared_bytes": dynamic shared memory a
+    block, "registers": a thread, "stack_bytes": local memory a thread}."""
+    out = (ctypes.c_int * 4)()
+    err = _kernel_lib().policy_step_info(out)
+    if err != 0:
+        raise RuntimeError(f"policy_step_info failed: cudaError_t {err}")
+    return dict(zip(("block", "shared_bytes", "registers", "stack_bytes"), out))
 
 
 def _launch(fn, name, dev, *args):

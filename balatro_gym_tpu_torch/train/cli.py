@@ -10,7 +10,11 @@ It runs on the card unless given ``--device cpu`` (the fused collection's
 plain versions then run on the CPU), prints one JSON line of metrics every
 ``--log-every`` updates and writes the reference's summary keys to
 ``--summary``. The reference's options that the port does not carry yet
-exit non-zero and name the ROADMAP item that ports them.
+exit non-zero and name the ROADMAP item that ports them. As in the
+reference, ``--wandb`` logs each metrics line to a W&B run where ``wandb``
+imports and starts, and trains without logging where it does not; and
+``--checkpoint-every`` saves only beside ``--checkpoint-dir`` (which is not
+ported yet), so alone it trains.
 """
 from __future__ import annotations
 
@@ -31,10 +35,6 @@ _NOT_PORTED = {
                          "checkpointing is not ported (ROADMAP queue 1 item 11)"),
     "--resume": (lambda a: bool(a.resume),
                  "checkpointing is not ported (ROADMAP queue 1 item 11)"),
-    "--checkpoint-every": (lambda a: a.checkpoint_every > 0,
-                           "checkpointing is not ported (ROADMAP queue 1 item 11)"),
-    "--wandb": (lambda a: a.wandb,
-                "W&B logging is not ported (ROADMAP queue 1 item 9)"),
     "--env full without --fused-rollout": (
         lambda a: a.env == "full" and not a.fused_rollout,
         "the full env's step_autoreset is not ported (ROADMAP queue 1 item 4): "
@@ -103,6 +103,14 @@ def main(argv=None) -> dict:
                     lr_final=args.lr_final,
                     **({"hidden": tuple(args.hidden)} if args.hidden else {}))
     init_fn, update_fn, _ = make_ppo(hooks, cfg, device=args.device)
+    wandb_run = None
+    if args.wandb:
+        try:
+            import wandb
+
+            wandb_run = wandb.init(project="balatro-tpu", config=vars(args))
+        except Exception:
+            wandb_run = None  # offline / not installed: train anyway
     ts = init_fn([int(w) for w in KR.seed_key(args.seed, device="cpu")])
     on_card = ts.ret_carry.device.type == "cuda"
 
@@ -116,6 +124,8 @@ def main(argv=None) -> dict:
             m["env_steps_per_sec"] = (i + 1) * cfg.n_envs * cfg.rollout_len / (
                 time.perf_counter() - t0)
             print(json.dumps(m), flush=True)
+            if wandb_run:
+                wandb_run.log(m)
     if on_card:
         torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
@@ -129,6 +139,8 @@ def main(argv=None) -> dict:
     if args.summary:
         Path(args.summary).write_text(json.dumps(summary, indent=2))
     print(json.dumps(summary))
+    if wandb_run:
+        wandb_run.finish()
     return summary
 
 

@@ -62,7 +62,12 @@ any failure raises and the run exits non-zero:
 12. policy timing: median of 5 CUDA-event samples of the collection at
     8192 x 256, of K3a, K3b, the policy forward and the sampler called
     alone at 8192 envs (20 back-to-back calls) and of their plain
-    versions, and of the plain collection at 8192 x 4; the profiler gives
+    versions, of K3a on a no-autoreset and an all-autoreset batch (the
+    main path's state at step 16 with the no-op action 59, without and with
+    ante 101: ops/fused_full_battery.py's ``reset_batches``, each held
+    against the plain step bit for bit before it is timed), and of the
+    plain collection at 8192 x 4; K3a's launch shape (block, shared
+    bytes, registers, stack) is read from the built kernel; the profiler gives
     each kernel's card time per launch and, over a 16-step collection, the
     card's idle share and card time per step; each kernel's bound (bytes
     over 3.35 TB/s or integer operations over the data sheet's INT32 rate)
@@ -100,7 +105,10 @@ any failure raises and the run exits non-zero:
     PPO env-steps/s; one update split into its stages (collection, stats,
     last value + GAE, shuffle + SGD) by CUDA events; the card's idle share
     of an update from the profiler's card time against the unprofiled
-    update time.
+    update time; the host's enqueue of one K3a call (``step_fused`` on the
+    trainer's 8192 envs, 100 back-to-back calls with no sync) and the time
+    of a fixed Python loop, which say how fast the host that sets the
+    update's time ran in this run.
 
 Float32 matmuls run in full float32 (``allow_tf32`` stays False). The last
 three lines are the trainer's JSON record, the kernels' JSON record (each
@@ -213,6 +221,31 @@ def cuda_ms(fn, calls=1, samples=5):
         t1.synchronize()
         times.append(t0.elapsed_time(t1) / calls)
     return statistics.median(times), times
+
+
+def host_call_us(fn, calls=100, samples=5):
+    """Median host time of one call of ``fn`` in us, issued ``calls`` times
+    back to back with no sync: its enqueue cost while the card keeps up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def host_loop_ms():
+    """ms of a fixed pure-Python loop: how fast the host's CPU runs now (the
+    trainer's update is host-bound, so its time follows this)."""
+    t0 = time.perf_counter()
+    acc = 0
+    for i in range(2_000_000):
+        acc += i & 7
+    return (time.perf_counter() - t0) * 1e3
 
 
 def bound(n_bytes, n_ops, int32_rate=INT32_OPS_PER_S):
@@ -670,10 +703,19 @@ def phase_policy_timing(smi, net, mid):
         with torch.no_grad():
             net(obs, mask)
 
+    no_reset, all_reset = BAT.reset_batches(packed)
+    for what, (p, act), ends in (("no_reset", no_reset, False), ("all_reset", all_reset, True)):
+        out = FP.step_fused(p, act, device=DEV)
+        assert_step_equal(out, FP.step_rows_reference(p, act), f"K3a {what}")
+        assert bool((out[2] == ends).all()), f"K3a {what}: done is not {ends} everywhere"
     # name: (call, plain version, part of the kernel's name in the profile)
     parts = {
         "K3a": (lambda: FP.step_fused(packed, a, device=DEV),
                 lambda: FP.step_rows_reference(packed, a), "policy_step_kernel"),
+        "K3a no_reset": (lambda: FP.step_fused(*no_reset, device=DEV), None,
+                         "policy_step_kernel"),
+        "K3a all_reset": (lambda: FP.step_fused(*all_reset, device=DEV), None,
+                          "policy_step_kernel"),
         "K3b": (lambda: FP.observe_fused(packed, device=DEV),
                 lambda: FP.observe_rows_reference(packed), "policy_observe_kernel"),
         "sampler": (lambda: FP.sample_fused(key, logits, device=DEV),
@@ -688,6 +730,7 @@ def phase_policy_timing(smi, net, mid):
         card_ms = (statistics.median(card) if kernel else sum(card) / calls) if card else None
         times[name] = {"call": call_ms, "card_ms": card_ms,
                        "plain": cuda_ms(plain) if plain is not None else None}
+    shape = FP.step_kernel_shape()
     window = 16
     idle, by_name = card_profile(lambda: FP.collect_policy_fused(net, st, 1, window, device=DEV))
     top = sorted(((sum(ds), n) for n, ds in by_name.items()), reverse=True)[:6]
@@ -719,7 +762,9 @@ def phase_policy_timing(smi, net, mid):
         f"{POLICY_PLAIN_STEPS}: median {plain_ms:.1f} ms (samples "
         f"{fmt(f'{x:.1f}' for x in plain_all)}) = "
         f"{plain_ms / POLICY_PLAIN_STEPS:.1f} ms/step; alone at {n} envs ({calls} back-to-back "
-        f"calls): {'; '.join(part_txt(k, v) for k, v in times.items())}; a {window}-step "
+        f"calls): {'; '.join(part_txt(k, v) for k, v in times.items())}; K3a "
+        f"{shape['block']} threads a block, {shape['shared_bytes']} B shared a block, "
+        f"{shape['registers']} registers, {shape['stack_bytes']} B stack; a {window}-step "
         f"collection under the profiler: "
         + ("not measured (no card activity in the profile)" if idle is None else
            f"card idle {idle:.4f} of its span, card time per step {card_step_ms * 1e3:.1f} us, "
@@ -728,7 +773,7 @@ def phase_policy_timing(smi, net, mid):
            f"{step_ms * 1e3:.1f} us = {idle_run:.4f}")
         + f" [{smi}]")
     return {"coll_ms": coll_ms, "plain_coll_ms": plain_ms, "times": times, "bounds": bounds,
-            "rate": rate, "idle": idle_run, "idle_profiled": idle}
+            "rate": rate, "idle": idle_run, "idle_profiled": idle, "k3a_shape": shape}
 
 
 def hist_work(n):
@@ -929,6 +974,10 @@ def phase_train_timing(smi, ts, update_fn):
     idle = None if card_ms is None else max(0.0, 1.0 - card_ms / upd_ms)
     top = sorted(((sum(ds), len(ds), n) for n, ds in by_name.items()), reverse=True)[:8]
     rate = steps / (upd_ms / 1e3)
+    envs = state["ts"].env_states
+    noop = torch.full((cfg.n_envs,), 59, dtype=torch.int32, device=DEV)
+    step_us = host_call_us(lambda: FP.step_fused(envs, noop, device=DEV))
+    loop_ms = host_loop_ms()
     log("17 trainer timing", f"update {cfg.n_envs}x{cfg.rollout_len} (fast_decay): median "
         f"{upd_ms:.3f} ms (CUDA events; samples {', '.join(f'{t:.3f}' for t in times)}; host "
         f"clock {statistics.median(host):.3f} ms) = {rate:.4g} PPO env-steps/s; stages of one "
@@ -937,11 +986,13 @@ def phase_train_timing(smi, ts, update_fn):
            else f"card time an update {card_ms:.3f} ms (profiler) -> card idle share "
                 f"{idle:.4f} of the unprofiled update ({idle_prof:.4f} of the profiled one); "
                 f"top kernels {[(n[:48], c, round(ms, 3)) for ms, c, n in top]} (launches, ms)")
-        + f" [{smi}]")
+        + f"; host: one step_fused call enqueued in {step_us:.1f} us (median of 5 x 100 "
+        f"back-to-back calls), a fixed Python loop {loop_ms:.1f} ms [{smi}]")
     return {"update_ms": upd_ms, "update_ms_samples": times, "host_update_ms": host,
             "env_steps_per_s": rate, "stages_ms": stages, "card_ms_per_update": card_ms,
             "card_idle_share": idle, "card_idle_share_profiled": idle_prof,
-            "top_kernels": [{"name": n, "launches": c, "ms": ms} for ms, c, n in top]}
+            "top_kernels": [{"name": n, "launches": c, "ms": ms} for ms, c, n in top],
+            "host_step_fused_us": step_us, "host_loop_ms": loop_ms}
 
 
 def main():
@@ -1007,6 +1058,9 @@ def main():
     kernels[-3]["collection_shape"] = [POLICY_ENVS, POLICY_STEPS]
     kernels[-3]["plain_collection_ms"] = pt["plain_coll_ms"]
     kernels[-3]["plain_collection_shape"] = [POLICY_ENVS, POLICY_PLAIN_STEPS]
+    kernels[-3].update(pt["k3a_shape"])
+    kernels[-3].update({f"{k}_ms": pt["times"][f"K3a {k}"]["card_ms"]
+                        for k in ("no_reset", "all_reset")})
     kernels[-3]["card_idle_share"] = pt["idle"]
     kernels[-3]["card_idle_share_profiled"] = pt["idle_profiled"]
     kernels.append({

@@ -7,9 +7,12 @@ and the sampler) with g++ through a small shim: the CUDA
 qualifiers become plain C++, the float intrinsics become the same IEEE
 operations (``-ffp-contract=off`` keeps multiplies and adds apart, as the
 ``_rn`` intrinsics do on the card), ``__float2int_rz`` saturates as the
-card's conversion does, and the threads run one after another. What this
-cannot check (the build for sm_90a, the launch, local memory, ``logf`` of
-the card's math library) is checked on the card by
+card's conversion does, and the threads run one after another. K3a's
+dynamic shared memory is a host array of its block's State slots, each
+slot filled with a junk pattern before its thread runs, so a field that
+``load_state`` failed to set would show. What this cannot check (the build
+for sm_90a, the launch, local and shared memory, ``logf`` of the card's
+math library) is checked on the card by
 tests/test_torch_full_rollout_cuda.py, tests/test_torch_policy_rollout_cuda.py and
 chip_smoke.py. The tables and
 ids that the kernel source spells out are read from it and held equal to
@@ -70,6 +73,9 @@ SHIM = r"""
 #define __constant__ static const
 #define __launch_bounds__(x)
 #define __restrict__
+#define __shared__
+#define __align__(n) __attribute__((aligned(n)))
+using std::max;
 using std::min;
 struct Dim3 { int x; };
 static Dim3 blockIdx, threadIdx;
@@ -241,7 +247,10 @@ POLICY_LAUNCH = r"""
 #define FULL_ROLLOUT_HOST_SHIM
 #include "shim.h"
 #include "fused_policy_rollout.cu"
-static void at(int e) { blockIdx.x = e / kBlock; threadIdx.x = e % kBlock; }
+namespace {
+__attribute__((aligned(16))) unsigned char k3a_slots[kStepSmem];
+}
+static void at(int e, int block = kBlock) { blockIdx.x = e / block; threadIdx.x = e % block; }
 extern "C" void host_observe(const int* c, const int* i, const uint32_t* r, float* obs,
                              uint8_t* mask, int n) {
   for (int e = 0; e < n; ++e) { at(e); policy_observe_kernel(c, i, r, obs, mask, n); }
@@ -250,7 +259,8 @@ extern "C" void host_step(const int* c, const int* i, const uint32_t* r, const i
                           const float* ft, int* co, int* io, uint32_t* ro, float* rw,
                           uint8_t* done, float* obs, uint8_t* mask, int n) {
   for (int e = 0; e < n; ++e) {
-    at(e);
+    at(e, kStepBlock);
+    memset(k3a_slots + threadIdx.x * sizeof(State), 0xA5, sizeof(State));
     policy_step_kernel(c, i, r, act, ft, co, io, ro, rw, done, obs, mask, n);
   }
 }
@@ -380,3 +390,33 @@ def test_host_policy_step_fed_battery(host_policy):
         assert_step_equal(step(packed, a.to(torch.int32)), ref, f"battery step {t}")
         packed = ref[0]
     assert all(v > 0 for v in BAT.coverage(np.stack(script)).values())
+
+
+@pytest.mark.parametrize("n", (1, 31, 33, 257))
+def test_host_policy_step_partial_blocks(host_policy, n):
+    """K3a at env counts that leave a partial block of its 32 threads (and
+    a slot index past the first block's), along 8 fed legal steps from a
+    diversified state, against the plain step."""
+    _, step, _ = host_policy
+    rng = np.random.default_rng(n)
+    st = BAT.surgery(F.rollout_full_fused(n, n, 4, device="cpu")["state"], rng)
+    packed = F.pack_full_state(st)
+    for t in range(8):
+        a = torch.as_tensor(BAT.sample_legal(F._legal_rows(F._load(packed)).T.numpy(), rng))
+        ref = FP.step_rows_reference(packed, a)
+        assert_step_equal(step(packed, a.to(torch.int32)), ref, f"n={n} step {t}")
+        packed = ref[0]
+
+
+def test_host_policy_step_reset_batches(host_policy):
+    """K3a on the autoreset batches: with ante 101 every env resets
+    (its deck shuffled anew in its State slot), with the no-op action none
+    does; both against the plain step."""
+    _, step, _ = host_policy
+    packed = F.pack_full_state(F.default_reset(6, 96, "cpu"))
+    for what, (p, a), ends in zip(("no_reset", "all_reset"),
+                                  BAT.reset_batches(packed), (False, True)):
+        ref = FP.step_rows_reference(p, a)
+        assert_step_equal(step(p, a), ref, what)
+        assert bool((ref[2] == ends).all()), what
+

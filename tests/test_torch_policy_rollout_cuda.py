@@ -24,7 +24,7 @@ from balatro_gym_tpu_torch.train.networks import ActorCritic
 
 pytestmark = pytest.mark.cuda
 
-SIZES = (1, 1000, 1025, 8192)
+SIZES = (1, 31, 33, 257, 1000, 1025, 8192, 8193)  # K3a: 32-thread blocks
 LOG1P_ROW = FP.OBS_DIM - 6
 
 
@@ -86,10 +86,11 @@ def test_kernels_equal_plain_along_a_collection(dev, n):
     assert _counts() == (n0[0] + 1, n0[1] + 16, n0[2] + 16)
 
 
-@pytest.mark.parametrize("n", (1000, 8192))
+@pytest.mark.parametrize("n", (1, 31, 33, 257, 1000, 8192, 8193))
 def test_step_kernel_equals_plain_on_the_fed_battery(dev, n):
     """K3a along a 24-step coverage-biased legal script from a surgically
-    diversified state: every action class, bosses, consumables, jokers."""
+    diversified state: every action class, bosses, consumables, jokers; at
+    env counts that leave K3a's last block partial too."""
     rng = np.random.default_rng(n)
     st = BAT.surgery(F.rollout_full_rows_reference(1, n, 4, device=dev)["state"], rng)
     packed, script = F.pack_full_state(st), []
@@ -100,7 +101,27 @@ def test_step_kernel_equals_plain_on_the_fed_battery(dev, n):
         out = FP.step_fused(packed, a)
         assert_step_equal(out, FP.step_rows_reference(packed, a), f"battery step {t}")
         packed = out[0]
-    assert all(v > 0 for v in BAT.coverage(np.stack(script)).values())
+    if n >= 1000:         # a narrower batch reaches not every class in 24 steps
+        assert all(v > 0 for v in BAT.coverage(np.stack(script)).values())
+
+
+def test_step_kernel_equals_plain_on_the_autoreset_batches(dev):
+    """K3a with every env resetting (ante 101) and with none (the no-op
+    action), the batches K3a's autoreset cost is timed on, against the plain
+    step."""
+    n = 8192
+    packed = F.pack_full_state(F.default_reset(5, n, dev))
+    for what, (p, a), ends in zip(("no_reset", "all_reset"), BAT.reset_batches(packed),
+                                  (False, True)):
+        out = FP.step_fused(p, a)
+        assert_step_equal(out, FP.step_rows_reference(p, a), what)
+        assert bool((out[2] == ends).all()), what
+
+
+def test_step_kernel_shape(dev):
+    """K3a runs 32 threads a block, each env's State in shared memory."""
+    shape = FP.step_kernel_shape()
+    assert shape["block"] == 32 and shape["shared_bytes"] == 32 * 1960, shape
 
 
 def test_collection_equals_plain_and_replays_through_k2(dev):

@@ -485,8 +485,7 @@ def test_cli_trains_and_writes_the_summary(tmp_path):
         capture_output=True, text=True, cwd=REPO, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     got = json.loads(summary.read_text())
-    assert set(got) == {"algorithm", "env", "total_env_steps", "wall_seconds",
-                        "steps_per_second", "updates", "final_metrics", "n_devices"}
+    assert set(got) == SUMMARY_KEYS
     assert got["total_env_steps"] == 2 * 16 * 4 and got["updates"] == 2
     assert set(got["final_metrics"]) == set(METRICS)
     assert all(np.isfinite(v) for v in got["final_metrics"].values())
@@ -497,13 +496,42 @@ def test_cli_trains_and_writes_the_summary(tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (["--algorithm", "a2c"], "queue 1 item 9"), (["--algorithm", "dqn"], "queue 1 item 9"),
     (["--distributed"], "queue 1 item 10"), (["--checkpoint-dir", "x"], "queue 1 item 11"),
-    (["--resume", "x"], "queue 1 item 11"), (["--checkpoint-every", "5"], "queue 1 item 11"),
-    (["--wandb"], "queue 1 item 9"),
-    (["--env", "full"], "queue 1 item 4")])
+    (["--resume", "x"], "queue 1 item 11"), (["--env", "full"], "queue 1 item 4")])
 def test_cli_unsupported_options_exit_with_their_roadmap_item(argv, item):
     with pytest.raises(SystemExit) as exc:
         TCLI.main(argv + ["--device", "cpu", "--updates", "1", "--summary", ""])
     assert exc.value.code not in (0, None) and item in str(exc.value.code)
+
+
+SUMMARY_KEYS = {"algorithm", "env", "total_env_steps", "wall_seconds", "steps_per_second",
+                "updates", "final_metrics", "n_devices"}
+TINY_CLI = ["--env", "sim", "--updates", "1", "--n-envs", "16", "--rollout", "4", "--epochs",
+            "2", "--minibatches", "2", "--hidden", "32", "--log-every", "1", "--device", "cpu"]
+
+
+def test_cli_wandb_trains_without_the_package(tmp_path, monkeypatch):
+    """As the reference: a wandb that fails to start leaves the run
+    training without logging (a stub whose init raises stands in, so the
+    guarded path runs whether or not wandb is installed)."""
+    class Wandb:
+        @staticmethod
+        def init(**kwargs):
+            raise RuntimeError("offline")
+
+    monkeypatch.setitem(sys.modules, "wandb", Wandb)
+    summary = tmp_path / "summary.json"
+    got = TCLI.main(TINY_CLI + ["--wandb", "--summary", str(summary)])
+    assert set(got) == SUMMARY_KEYS and json.loads(summary.read_text()) == got
+    assert got["updates"] == 1 and set(got["final_metrics"]) == set(METRICS)
+
+
+def test_cli_checkpoint_every_alone_trains(tmp_path):
+    """As the reference: --checkpoint-every saves only beside
+    --checkpoint-dir, so alone it trains."""
+    summary = tmp_path / "summary.json"
+    got = TCLI.main(TINY_CLI + ["--checkpoint-every", "5", "--summary", str(summary)])
+    assert set(got) == SUMMARY_KEYS and json.loads(summary.read_text()) == got
+    assert got["total_env_steps"] == 16 * 4 and set(got["final_metrics"]) == set(METRICS)
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
