@@ -18,6 +18,17 @@
 //
 // Every game draw uses the named streams: fold_in(fold_in(key, stream),
 // counter), the stream's counter bumped per draw.
+//
+// The State is compact: the five card channels of the 64 deck slots and of
+// the 8 hand positions are uint8_t, so it takes 888 B, not 1,960. Their
+// ranges: rank 0-14 (0 for an empty slot), suit 0-3, enhancement 0-8,
+// edition 0-4, seal 0-4; every hand write is masked with & 15, and every
+// read promotes to int, so the arithmetic is the int32 program's. The
+// packed rows stay int32. hidx stays int (it holds -1). K3a keeps the State
+// in shared memory, one slot a thread; K2 and K3b in local memory, where
+// the smaller State cut their stack and spills. The slot rule: sizeof(State)
+// is an odd count of 8-byte units (888 B, padded), so 32 slots read at one
+// field offset fall in 16 distinct banks: at most 2-way bank conflicts.
 #pragma once
 
 #include <stdint.h>
@@ -116,10 +127,13 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
 }
 __device__ __forceinline__ bool bit64(uint64_t m, int d) { return (m >> d) & 1ull; }
 
+// One env's state. The card channels of the deck and the hand are bytes
+// (see the note above); every other field is a 32- or 64-bit word.
 struct State {
-  int rk[kDeck], su[kDeck], en[kDeck], ed[kDeck], sl[kDeck];
+  uint8_t rk[kDeck], su[kDeck], en[kDeck], ed[kDeck], sl[kDeck];
   uint64_t al, ih, bp;                 // alive, in hand, boss-played slot sets
-  int hidx[kHand], hrk[kHand], hsu[kHand], hen[kHand], hed[kHand], hsl[kHand];
+  int hidx[kHand];                     // deck slot of a hand position, -1 if empty
+  uint8_t hrk[kHand], hsu[kHand], hen[kHand], hed[kHand], hsl[kHand];
   uint32_t sel, fd, high;              // hand-position masks (8 bits)
   int jok[kJok], cons[kCons], sty[kShop], sit[kShop], sco[kShop], lvl[kLvl], pc[kLvl];
   int hn, jn, green, bus, cn, vou, jslots, cslots, ante, round, phase, need, career;
@@ -128,7 +142,9 @@ struct State {
   bool bact, bfirst, done;
   TfKey key;
   uint32_t ctr[kCtr];
+  uint32_t pad[2];                     // the slot rule (see the note above)
 };
+static_assert(sizeof(State) % 16 == 8, "an odd count of 8-byte units keeps bank conflicts 2-way");
 
 // Next draw key of stream `sid`; bumps its counter.
 __device__ __forceinline__ TfKey next_key(State& s, int sid) {
@@ -979,8 +995,8 @@ __device__ __forceinline__ void deal(State& s, int d, uint32_t w) {
 // kUnrolled sorts in registers (merge_stages): K3a's form, since a launch
 // lasts as long as its slowest warp, and the loops below over a local v
 // made a K3a launch in which any env resets ~100 us longer on an H100
-// (PERF.md). K2 keeps the loops: the unrolled form made its 131072-env
-// rollout 17% slower there.
+// (PERF.md). K2 keeps the loops: at its 64 registers the unrolled form
+// made its 131072-env rollout 3% slower there.
 template <bool kUnrolled>
 __device__ void reset_state(State& s) {
   s.key = tf_fold_in(s.key, (uint32_t)s.sc);

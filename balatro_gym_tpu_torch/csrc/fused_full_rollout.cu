@@ -8,24 +8,39 @@
 // (ops/fused_full_rollout.py) is held against it on the card, and against
 // the reference's rows program on the CPU.
 //
-// What bounds it on this card: integer work per env-step. A step is a long
-// stateful program with data-dependent indexing (64 deck slots, 151 shop
-// jokers, 64 Immolate priorities, a 543-exchange sorting network at
-// autoreset) and several hundred Threefry hashes of 20 rounds each where
-// the shop is rebuilt. Memory traffic is one read and one write of the
-// ~2.1 KB packed state per env per call, plus 4 B/env-step of fed actions.
+// What bounds it on this card: the latency of each thread's dependent
+// integer chains, hidden only by resident warps. A step is a long stateful
+// program with data-dependent indexing (64 deck slots, 151 shop jokers, 64
+// Immolate priorities, a 543-exchange sorting network at autoreset) and
+// several hundred Threefry hashes of 20 rounds each where the shop is
+// rebuilt; an env's steps are serial, so a thread is one chain. Memory
+// traffic is one read and one write of the ~2.1 KB packed state per env per
+// call, plus 4 B/env-step of fed actions, and the State's own local-memory
+// accesses, which the resident warps hide as well.
 //
 // What the design does about it: one thread per env; the packed [rows, B]
 // state (envs contiguous, so every load and store coalesces) is read into
-// a per-thread struct once, stepped n_steps times and written back. Where
+// a per-thread State once, stepped n_steps times and written back. Where
 // the TPU program computes every branch and selects, this kernel switches
 // on the action and runs only the taken branch; the RNG stays bit-exact
 // because every draw is keyed by (stream, counter), and each branch bumps
 // exactly the counters the TPU program's merge keeps. Unsigned priority
 // words are compared as uint32 (the TPU program flips the sign bit to
-// order them as int32: the same order). The state lives in local memory
-// (it does not fit in registers); shared memory, occupancy and the
-// instruction mix are later work.
+// order them as int32: the same order). The launch shape is the kernel's
+// own, for resident warps:
+// * the compact State (888 B, card channels as bytes; full_step.cuh) in
+//   local memory, so registers, not the State, bound occupancy;
+// * blocks of kRolloutBlock (64) threads and at least kRolloutMinBlocks
+//   (16) blocks an SM, so the compiler holds a thread to 64 registers and
+//   1,024 threads fit an SM: 135,168 on the card, every env of the
+//   131072-env flagship shape resident at once. 64 registers cost 288 B of
+//   spill stores; the warps gained outweigh them. On one NVIDIA H100 80GB
+//   HBM3 at 700 W (PERF.md), 131072 x 256 sampled: 59.7 ms, against 72.7
+//   at 96 registers and 5 blocks of 128;
+// * the State is not in shared memory, as K3a's is: at 888 B a slot an SM
+//   holds 256 envs, 8 warps, too few to hide the chains (94-110 ms);
+// * the autoreset's sort keeps its loops (step<false>): the unrolled form's
+//   64 live words cost spills here (61.7 ms at 64 registers).
 //
 // The state, its load and store and the step are in full_step.cuh, shared
 // with the policy-collection kernels; its notes give the numerics.
@@ -44,7 +59,10 @@
 
 namespace {
 
-__global__ void __launch_bounds__(kBlock)
+// K2's launch shape (see above).
+constexpr int kRolloutBlock = 64, kRolloutMinBlocks = 16;
+
+__global__ void __launch_bounds__(kRolloutBlock, kRolloutMinBlocks)
 fused_full_rollout_kernel(const int* __restrict__ cards_in, const int* __restrict__ ints_in,
                           const uint32_t* __restrict__ rng_in, const int* __restrict__ actions,
                           const float* __restrict__ ft, int* __restrict__ cards_out,
@@ -52,7 +70,7 @@ fused_full_rollout_kernel(const int* __restrict__ cards_in, const int* __restric
                           float* __restrict__ reward_out, int* __restrict__ epi_out,
                           int n_envs, int n_steps, int use_actions, uint32_t key0,
                           uint32_t key1) {
-  const int e = blockIdx.x * kBlock + threadIdx.x;
+  const int e = blockIdx.x * kRolloutBlock + threadIdx.x;
   if (e >= n_envs) return;
   const size_t B = (size_t)n_envs;
   State s;
@@ -94,10 +112,24 @@ extern "C" int fused_full_rollout_launch(const int* cards_in, const int* ints_in
                                          int use_actions, unsigned int key0,
                                          unsigned int key1, void* stream) {
   if (n_envs <= 0) return (int)cudaSuccess;
-  const int grid = (n_envs + kBlock - 1) / kBlock;
-  fused_full_rollout_kernel<<<grid, kBlock, 0, (cudaStream_t)stream>>>(
+  fused_full_rollout_kernel<<<(n_envs + kRolloutBlock - 1) / kRolloutBlock, kRolloutBlock, 0,
+                              (cudaStream_t)stream>>>(
       cards_in, ints_in, rng_in, actions, ftab, cards_out, ints_out, rng_out, reward_out,
       epi_out, n_envs, n_steps, use_actions, key0, key1);
   return (int)cudaGetLastError();
+}
+
+// K2's launch shape and what the compiler gave it: out[0] threads a block,
+// out[1] shared bytes a block, out[2] registers a thread, out[3] local
+// (stack) bytes a thread.
+extern "C" int fused_full_rollout_info(int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, fused_full_rollout_kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = kRolloutBlock;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = a.numRegs;
+  out[3] = (int)a.localSizeBytes;
+  return (int)cudaSuccess;
 }
 #endif

@@ -28,17 +28,19 @@
 // written with envs contiguous, so stores coalesce; the observation and mask
 // are written feature-major ([189, B] f32, [60, B] bytes), and the wrapper
 // hands out the transposed views the policy's first matmul reads without a
-// copy. K3b reads the state into a per-thread State (local memory). K3a, the
+// copy. K3b reads the state into a per-thread State (local memory, 888 B of
+// stack and no spills with the compact State). K3a, the
 // one launched every collection step, has a launch shape of its own:
 // * blocks of kStepBlock (32) threads, so that 8192 envs make 256 blocks and
 //   every one of the card's 132 SMs gets work (kBlock's 128 left 68 idle);
-// * the env's State (1,960 B) in dynamic shared memory, one slot a thread,
-//   62.7 KB a block: the step's runtime-indexed deck and hand slots are then
-//   on chip, where a local State took 255 registers, 3,552 B of stack and
-//   1.8 KB of spill stores. full_step.cuh's helpers take State&, so load_state,
-//   step and store_state run on the slot unchanged, and every bit is the
-//   same. The slot stride, 245 eight-byte units, is odd, so a field read by
-//   a warp at one offset meets at most 2-way bank conflicts;
+// * the env's compact State (888 B, full_step.cuh) in dynamic shared
+//   memory, one slot a thread, 28,416 B a block: the step's runtime-indexed
+//   deck and hand slots are then on chip, where a local State took 255
+//   registers, 3,552 B of stack and 1.8 KB of spill stores. full_step.cuh's
+//   helpers take State&, so load_state, step and store_state run on the slot
+//   unchanged, and every bit is the same. The slot stride, 111 eight-byte
+//   units, is odd, so a field read by a warp at one offset meets at most
+//   2-way bank conflicts;
 // * the autoreset's deck sort unrolled (step<true>, reset_state's unrolled
 //   form), its 64 words in registers: a launch lasts as long as its slowest
 //   warp, and on an H100 any warp with a resetting env paid ~100 us for the
@@ -70,7 +72,6 @@ constexpr int kObs = 189, kActions = 60;
 // K3a's launch shape (see above).
 constexpr int kStepBlock = 32;
 constexpr size_t kStepSmem = kStepBlock * sizeof(State);
-static_assert(sizeof(State) % 16 == 8, "an odd count of 8-byte units keeps bank conflicts 2-way");
 
 // K3a's dynamic shared memory: State slots of its block's threads.
 extern __shared__ __align__(16) unsigned char k3a_slots[];

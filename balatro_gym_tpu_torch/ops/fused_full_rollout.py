@@ -1301,8 +1301,20 @@ def float_tables(device):
 def _kernel_lib():
     lib = cuda_build.load("fused_full_rollout.cu")
     lib.fused_full_rollout_launch.argtypes = _C_ARGS
-    lib.fused_full_rollout_launch.restype = ctypes.c_int
+    lib.fused_full_rollout_info.argtypes = [ctypes.c_void_p]
+    lib.fused_full_rollout_launch.restype = lib.fused_full_rollout_info.restype = ctypes.c_int
     return lib
+
+
+def rollout_kernel_shape():
+    """K2's launch shape and what the compiler gave it, on the current
+    card: {"block": threads a block, "shared_bytes": shared memory a block,
+    "registers": a thread, "stack_bytes": local memory a thread}."""
+    out = (ctypes.c_int * 4)()
+    err = _kernel_lib().fused_full_rollout_info(out)
+    if err != 0:
+        raise RuntimeError(f"fused_full_rollout_info failed: cudaError_t {err}")
+    return dict(zip(("block", "shared_bytes", "registers", "stack_bytes"), out))
 
 
 def _kernel_packed(packed, actions, seed, n_steps):

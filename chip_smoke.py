@@ -46,7 +46,9 @@ any failure raises and the run exits non-zero:
    64-step call equals the chained plain steps bit for bit, and every
    action class is fed;
 9. full-env timing: the kernel at 131072 x 256 (10 back-to-back calls per
-   sample) and the plain version at 131072 x 8, median of 5 samples;
+   sample) and the plain version at 131072 x 8, median of 5 samples; K2's
+   launch shape (block, shared bytes, registers, stack) read from the
+   built kernel;
 10. policy main path: ``ops.fused_policy_rollout.collect_policy_fused``
     (K3b, then policy forward -> sampler -> K3a each step, from
     csrc/fused_policy_rollout.cu) with a seeded ``ActorCritic(256, 256)`` on
@@ -500,6 +502,7 @@ def phase_full_timing(smi):
                                                                  device=DEV))
     k_rate = N_ENVS * N_STEPS / (k_ms / 1e3)
     p_rate = N_ENVS * FULL_PLAIN_STEPS / (p_ms / 1e3)
+    shape = FF.rollout_kernel_shape()
     log("9 full timing", f"call {N_ENVS}x{N_STEPS} ({calls} calls per sample, default reset "
         f"included): median {k_ms:.3f} ms (samples {', '.join(f'{t:.3f}' for t in k_all)}) = "
         f"{k_rate:.4g} env-steps/s; kernel alone on a packed state: median {a_ms:.3f} ms "
@@ -507,8 +510,10 @@ def phase_full_timing(smi):
         f"{N_ENVS * N_STEPS / (a_ms / 1e3):.4g} env-steps/s; plain {N_ENVS}x"
         f"{FULL_PLAIN_STEPS}: median {p_ms:.1f} ms (samples "
         f"{', '.join(f'{t:.1f}' for t in p_all)}) = {p_rate:.4g} env-steps/s; kernel/plain "
-        f"{k_rate / p_rate:.1f}x [{smi}]")
-    return k_ms, a_ms, p_ms, k_rate, p_rate
+        f"{k_rate / p_rate:.1f}x; K2 {shape['block']} threads a block, "
+        f"{shape['shared_bytes']} B shared a block, {shape['registers']} registers, "
+        f"{shape['stack_bytes']} B stack [{smi}]")
+    return k_ms, a_ms, p_ms, k_rate, p_rate, shape
 
 
 def policy_counts():
@@ -1007,7 +1012,7 @@ def main():
     full_launches, full_err = phase_full_main()
     fed_err, fed_st, fed_script = phase_full_fed()
     full_err = max(full_err, fed_err)
-    fk_ms, fa_ms, fp_ms, fk_rate, fp_rate = phase_full_timing(smi)
+    fk_ms, fa_ms, fp_ms, fk_rate, fp_rate, k2_shape = phase_full_timing(smi)
     policy_launches, net, st0, traj, final = phase_policy_main()
     policy_err, mid = phase_policy_parity(net, st0, traj, final, (fed_st, fed_script))
     pt = phase_policy_timing(smi, net, mid)
@@ -1039,7 +1044,7 @@ def main():
         "launches": full_launches, "max_abs_err": full_err, "ms": fk_ms, "plain_ms": fp_ms,
         "kernel_alone_ms": fa_ms,
         "shape": [N_ENVS, N_STEPS], "plain_shape": [N_ENVS, FULL_PLAIN_STEPS],
-        "env_steps_per_s": fk_rate, "plain_env_steps_per_s": fp_rate}]
+        "env_steps_per_s": fk_rate, "plain_env_steps_per_s": fp_rate, **k2_shape}]
     for name, kname, replaces in (
             ("K3a", "policy_step", "balatro_gym_tpu/ops/fused_policy_rollout.py:174"),
             ("K3b", "policy_observe", "balatro_gym_tpu/ops/fused_policy_rollout.py:190"),

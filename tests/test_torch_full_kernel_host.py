@@ -7,10 +7,12 @@ and the sampler) with g++ through a small shim: the CUDA
 qualifiers become plain C++, the float intrinsics become the same IEEE
 operations (``-ffp-contract=off`` keeps multiplies and adds apart, as the
 ``_rn`` intrinsics do on the card), ``__float2int_rz`` saturates as the
-card's conversion does, and the threads run one after another. K3a's
-dynamic shared memory is a host array of its block's State slots, each
-slot filled with a junk pattern before its thread runs, so a field that
-``load_state`` failed to set would show. What this cannot check (the build
+card's conversion does, and the threads run one after another. A field
+that ``load_state`` failed to set would show: the build fills every
+uninitialised local (K2's and K3b's State) with a junk pattern
+(``-ftrivial-auto-var-init=pattern``), and K3a's dynamic shared memory is a
+host array of its block's State slots, each filled with a junk pattern
+before its thread runs. What this cannot check (the build
 for sm_90a, the launch, local and shared memory, ``logf`` of the card's
 math library) is checked on the card by
 tests/test_torch_full_rollout_cuda.py, tests/test_torch_policy_rollout_cuda.py and
@@ -71,7 +73,7 @@ SHIM = r"""
 #define __global__
 #define __forceinline__ inline
 #define __constant__ static const
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
 #define __shared__
 #define __align__(n) __attribute__((aligned(n)))
@@ -104,8 +106,8 @@ extern "C" void host_launch(const int* ci, const int* ii, const uint32_t* ri, co
                             const float* ft, int* co, int* io, uint32_t* ro, float* rw,
                             int* ep, int n, int steps, int use, uint32_t k0, uint32_t k1) {
   for (int e = 0; e < n; ++e) {
-    blockIdx.x = e / kBlock;
-    threadIdx.x = e % kBlock;
+    blockIdx.x = e / kRolloutBlock;
+    threadIdx.x = e % kRolloutBlock;
     fused_full_rollout_kernel(ci, ii, ri, act, ft, co, io, ro, rw, ep, n, steps, use, k0, k1);
   }
 }
@@ -183,7 +185,8 @@ def _compile(tmp_path_factory, launch_source):
     (d / "host_launch.cpp").write_text(launch_source)
     lib = d / "libhost.so"
     subprocess.run([gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-                    f"-I{CSRC}", "-o", str(lib), str(d / "host_launch.cpp")],
+                    "-ftrivial-auto-var-init=pattern", f"-I{CSRC}", "-o", str(lib),
+                    str(d / "host_launch.cpp")],
                    check=True, capture_output=True, text=True)
     return ctypes.CDLL(str(lib))
 
@@ -225,18 +228,74 @@ def test_host_kernel_sampled(host_kernel):
     assert episodes > 0
 
 
-def test_host_kernel_fed_battery(host_kernel):
-    rng = np.random.default_rng(1)
-    st = BAT.surgery(F.rollout_full_fused(5, 512, 4, device="cpu")["state"], rng)
+def _legal_script(st, n_steps, rng):
+    """An ``n_steps`` coverage-biased legal script from ``st``, made by
+    stepping the plain version."""
     s, script = st, []
-    for _ in range(24):
+    for _ in range(n_steps):
         a = BAT.sample_legal(F.legal_mask(s).numpy(), rng)
         script.append(a)
-        s = F.rollout_full_fused(0, 512, 1, actions=a[None], init_state=s,
+        s = F.rollout_full_fused(0, len(a), 1, actions=a[None], init_state=s,
                                 device="cpu")["state"]
-    script = np.stack(script)
+    return np.stack(script)
+
+
+def _battery(n, n_steps, rng):
+    """A diversified state of ``n`` envs and a legal script from it."""
+    st = BAT.surgery(F.rollout_full_fused(5, n, 4, device="cpu")["state"], rng)
+    return st, _legal_script(st, n_steps, rng)
+
+
+def test_host_kernel_fed_battery(host_kernel):
+    st, script = _battery(512, 24, np.random.default_rng(1))
     assert all(v > 0 for v in BAT.coverage(script).values()), BAT.coverage(script)
     _compare(host_kernel, F.pack_full_state(st), torch.as_tensor(script), 0, len(script))
+
+
+@pytest.mark.parametrize("mode", ("sampled", "fed"))
+@pytest.mark.parametrize("n", (1, 31, 33, 257))
+def test_host_kernel_partial_blocks(host_kernel, n, mode):
+    """K2 at env counts that leave a partial block of its 64 threads (and
+    blocks past the first): 16 sampled steps from the default reset, or 8
+    fed legal steps from a diversified state."""
+    if mode == "sampled":
+        _compare(host_kernel, F.pack_full_state(F.default_reset(n, n, "cpu")), None, n, 16)
+    else:
+        st, script = _battery(n, 8, np.random.default_rng(n))
+        _compare(host_kernel, F.pack_full_state(st), torch.as_tensor(script), 0, len(script))
+
+
+def _extreme_cards(n):
+    """A mid-game batch whose card channels take their extreme legal values
+    (the State keeps them as bytes): alive odd slots rank 14, suit 3,
+    enhancement 8, edition 4, seal 4; alive even slots rank 2 and 0 in the
+    other channels; dead slots 0 in every channel."""
+    st = F.rollout_full_fused(9, n, 6, device="cpu")["state"]
+    odd = (torch.arange(64) % 2 == 1).expand(n, 64)
+    for name, hi, lo in (("card_rank", 14, 2), ("card_suit", 3, 0), ("card_enh", 8, 0),
+                         ("card_ed", 4, 0), ("card_seal", 4, 0)):
+        v = torch.where(odd, hi, lo).to(torch.int32)
+        setattr(st, name, torch.where(st.card_alive, v, 0).to(torch.int32))
+    assert int(st.card_alive.sum()) < 64 * n and bool((st.phase == 0).any())
+    return st
+
+
+@pytest.mark.parametrize("kernel", ("K2", "K3a"))
+def test_host_kernels_extreme_card_values(request, kernel):
+    """K2 and K3a on the extreme card channels, 4 fed legal steps, against
+    the plain version."""
+    st, rng = _extreme_cards(96), np.random.default_rng(4)
+    packed = F.pack_full_state(st)
+    if kernel == "K2":
+        _compare(request.getfixturevalue("host_kernel"), packed,
+                 torch.as_tensor(_legal_script(st, 4, rng)), 0, 4)
+        return
+    _, step, _ = request.getfixturevalue("host_policy")
+    for t in range(4):
+        a = torch.as_tensor(BAT.sample_legal(F._legal_rows(F._load(packed)).T.numpy(), rng))
+        ref = FP.step_rows_reference(packed, a)
+        assert_step_equal(step(packed, a.to(torch.int32)), ref, f"extreme step {t}")
+        packed = ref[0]
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,7 @@ from balatro_gym_tpu_torch.ops import fused_full_rollout as F
 
 pytestmark = pytest.mark.cuda
 
-SIZES = (1, 1000, 1025, 8192)
+SIZES = (1, 31, 33, 257, 1000, 1025, 8192)
 STEPS = (0, 1, 64)
 
 
@@ -80,6 +80,15 @@ def test_fed_kernel_equals_plain(dev, battery, n, steps):
 def test_fed_battery_covers_every_action_class(battery):
     cov = BAT.coverage(battery[8192][1].cpu().numpy())
     assert all(v > 0 for v in cov.values()), cov
+
+
+def test_rollout_kernel_shape(dev):
+    """K2 runs 64 threads a block with at least 16 blocks an SM, so it has
+    at most 64 registers a thread, and each env's 888 B State in local
+    memory (no shared memory)."""
+    shape = F.rollout_kernel_shape()
+    assert shape["block"] == 64 and shape["shared_bytes"] == 0, shape
+    assert 0 < shape["registers"] <= 64 and 888 <= shape["stack_bytes"] < 1960, shape
 
 
 def test_game_over_lane_autoresets(dev):

@@ -119,9 +119,9 @@ def test_step_kernel_equals_plain_on_the_autoreset_batches(dev):
 
 
 def test_step_kernel_shape(dev):
-    """K3a runs 32 threads a block, each env's State in shared memory."""
+    """K3a runs 32 threads a block, each env's 888 B State in shared memory."""
     shape = FP.step_kernel_shape()
-    assert shape["block"] == 32 and shape["shared_bytes"] == 32 * 1960, shape
+    assert shape["block"] == 32 and shape["shared_bytes"] == 32 * 888, shape
 
 
 def test_collection_equals_plain_and_replays_through_k2(dev):
