@@ -24,9 +24,9 @@
 // ranges: rank 0-14 (0 for an empty slot), suit 0-3, enhancement 0-8,
 // edition 0-4, seal 0-4; every hand write is masked with & 15, and every
 // read promotes to int, so the arithmetic is the int32 program's. The
-// packed rows stay int32. hidx stays int (it holds -1). K3a keeps the State
-// in shared memory, one slot a thread; K2 and K3b in local memory, where
-// the smaller State cut their stack and spills. The slot rule: sizeof(State)
+// packed rows stay int32. hidx stays int (it holds -1). K3a and K3b keep
+// the State in shared memory, one slot an env; K2 in local memory, where
+// the smaller State cut its stack and spills. The slot rule: sizeof(State)
 // is an odd count of 8-byte units (888 B, padded), so 32 slots read at one
 // field offset fall in 16 distinct banks: at most 2-way bank conflicts.
 #pragma once
@@ -37,7 +37,6 @@
 
 namespace {
 
-constexpr int kBlock = 128;
 constexpr int kDeck = 64, kHand = 8, kJok = 5, kCons = 5, kShop = 10, kLvl = 12;
 constexpr int kCtr = 16, kJokers = 151;
 

@@ -14,25 +14,29 @@
 // elementwise launches over a [60, B] block of int64 words a step, more
 // than K3a and the policy together, so it is a kernel here.
 //
-// What bounds them on this card. K3a and K3b move memory: each reads the
-// 2,136 B packed state of an env, K3a writes it back, and both write 756 B
-// of observation and 60 B of mask (K3a also 5 B of reward and done): about
-// 5.1 KB an env for K3a, 24 MB for K3b, at 8192 envs. The step's own
+// What bounds them on this card. K3a moves memory: it reads the 2,136 B
+// packed state of an env and writes it back, with 756 B of observation, 60 B
+// of mask and 5 B of reward and done: about 5.1 KB an env. The step's own
 // integer work (Threefry hashes of the named streams, the shop rebuild, the
 // autoreset's sort) depends on the action taken; one env step's dependent
 // chain is long (tens of microseconds), so at collection widths the card
-// waits on latency, not on bandwidth. The sampler does integer work: 60
-// Threefry hashes of 20 rounds an env, 120 logf and 60 expf.
+// waits on latency, not on bandwidth. K3b moves memory too: of the packed
+// state it needs 69 int rows and, for each card in the hand, its rank and
+// suit (at most 85 words, 340 B an env), and it writes 816 B: 9.5 MB, 2.8 us
+// at 3.35 TB/s, at 8192 envs. The sampler does integer work: 60 Threefry
+// hashes of 20 rounds an env (4,500 integer operations, 37 M at 8192 envs,
+// about 1 us of the card's INT32 rate), 120 logf and 60 expf, and reads 240
+// B of logits.
 //
-// What the design does about it: one thread per env, as K2; every row is
-// written with envs contiguous, so stores coalesce; the observation and mask
-// are written feature-major ([189, B] f32, [60, B] bytes), and the wrapper
-// hands out the transposed views the policy's first matmul reads without a
-// copy. K3b reads the state into a per-thread State (local memory, 888 B of
-// stack and no spills with the compact State). K3a, the
-// one launched every collection step, has a launch shape of its own:
+// What the design does about it. Every row is written with envs contiguous,
+// so stores coalesce; the observation and mask are written feature-major
+// ([189, B] f32, [60, B] bytes), and the wrapper hands out the transposed
+// views the policy's first matmul reads without a copy. Each kernel has a
+// launch shape of its own.
+//
+// K3a, one thread an env:
 // * blocks of kStepBlock (32) threads, so that 8192 envs make 256 blocks and
-//   every one of the card's 132 SMs gets work (kBlock's 128 left 68 idle);
+//   every one of the card's 132 SMs gets work;
 // * the env's compact State (888 B, full_step.cuh) in dynamic shared
 //   memory, one slot a thread, 28,416 B a block: the step's runtime-indexed
 //   deck and hand slots are then on chip, where a local State took 255
@@ -45,17 +49,59 @@
 //   form), its 64 words in registers: a launch lasts as long as its slowest
 //   warp, and on an H100 any warp with a resetting env paid ~100 us for the
 //   looped sort.
-// The sampler keeps one env's 60 logits in a thread, so the Gumbel argmax and
-// the log-softmax at the drawn action need no reduction across threads; it
-// reads the logits in the layout the policy's matmul wrote them (strides
-// passed in), so no copy is made.
+//
+// K3b, kObserveGroups threads an env. One thread an env in 128-thread
+// blocks left 68 of the 132 SMs idle at 8192 envs, and each thread read all
+// 534 packed rows of its env into a State in one chain, though the
+// observation and mask read 85 of them. A block now serves kObserveEnvs (32)
+// envs with kObserveGroups warps (256 blocks at 8192 envs), in two phases
+// split by __syncthreads:
+// * load: warp g runs the load jobs j = g (mod kObserveGroups) of its 32
+//   envs (kObserveJobs: a hand position each, then six groups of rows),
+//   each a few independent coalesced 128 B row loads (the hand's card
+//   ranks and suits are gathers by deck slot), into the fields of the env's
+//   State slot in shared memory (28,416 B a block) that obs_row and legal
+//   read, with load_state's expressions;
+// * emit: warp g writes the observation rows r = g (mod kObserveGroups)
+//   and the mask rows a = g (mod kObserveGroups) of its 32 envs, each a
+//   coalesced 128 B (or 32 B) store of one row by a warp. obs_row(s, r) is
+//   write_obs's expression of row r.
+// Staging the whole packed tile of a block in shared memory (cp.async) and
+// running load_state on it was measured first: 16.8-23.1 us, against 22.7
+// for the old shape. With 8 threads an env the field loads took 158
+// registers (one block an SM, two waves); with 16 or 32, 32 registers and
+// every block resident at once; 32 was the faster by 6% (PERF.md).
+//
+// The sampler, kSampleGroups threads an env. One thread ran an env's 60
+// hashes in one chain, again in 64 blocks of 128. A block now serves
+// kSampleEnvs (32) envs with kSampleGroups warps; lane l of warp g takes env
+// l's kPerThread actions a = g (mod kSampleGroups). Four phases split by
+// __syncthreads:
+// * stage: the thread starts asynchronous copies (cp.async) of its share of
+//   the block's 32 x 60 logits into shared memory, the loop ordered so that
+//   neighbouring threads read neighbouring addresses in either layout (the
+//   policy's matmul leaves the logits column-major), and computes the Gumbel
+//   noise of its actions while they travel; its loop is unrolled, so its
+//   hash chains interleave. The pitch, 33 floats an action, keeps the
+//   copies' stores and the lanes' reads free of bank conflicts;
+// * partials: each thread's best perturbed logit (value, action), lowest
+//   action on ties, and its largest logit;
+// * sums: each thread combines the groups' largest logits and sums
+//   expf(logit - max) over its actions;
+// * write: warp 0 combines the groups' best values in group order with
+//   argmax's rule (a larger value, or an equal one at a lower action) and
+//   the partial sums in group order, and writes the action and its
+//   log-softmax.
+// Every phase reads and writes shared memory through plain pointers, so the
+// host build of the tests runs a block's threads phase by phase.
 //
 // Numerics: every observation row is the reference's f32 expression with
 // _rn intrinsics (__fdiv_rn, never a reciprocal multiply); log1pf for the
 // chips-needed row. The sampler draws word a * B + e of
 // jax.random.bits(step_key, (60, B)), u = uniform(minval=tiny, maxval=1),
 // Gumbel -log(-log(u)), and takes the lowest index among equal maxima, as
-// jnp.argmax does.
+// jnp.argmax does; its log-softmax sums the 60 exponentials in another order
+// than torch's log_softmax (within 1e-6 of it).
 
 #ifndef FULL_ROLLOUT_HOST_SHIM
 #include <cuda_runtime.h>
@@ -72,12 +118,70 @@ constexpr int kObs = 189, kActions = 60;
 // K3a's launch shape (see above).
 constexpr int kStepBlock = 32;
 constexpr size_t kStepSmem = kStepBlock * sizeof(State);
+// K3b's: kObserveJobs load jobs of an env (see observe_load) shared by its
+// kObserveGroups threads.
+constexpr int kObserveEnvs = 32, kObserveGroups = 32, kObserveJobs = kHand + 6;
+constexpr int kObserveBlock = kObserveEnvs * kObserveGroups;
+// The sampler's: each thread takes kPerThread of an env's actions.
+constexpr int kSampleEnvs = 32, kSampleGroups = 12, kPerThread = kActions / kSampleGroups;
+constexpr int kSampleBlock = kSampleEnvs * kSampleGroups;
+constexpr int kPitch = kSampleEnvs + 1;
+static_assert(kActions % kSampleGroups == 0, "every thread takes as many actions");
 
 // K3a's dynamic shared memory: State slots of its block's threads.
 extern __shared__ __align__(16) unsigned char k3a_slots[];
 
+#ifndef FULL_ROLLOUT_HOST_SHIM
+// An asynchronous 4 B copy from device into shared memory (cp.async) and the
+// wait for all of a thread's; the host build's shim defines them as a plain
+// copy and nothing.
+__device__ __forceinline__ void copy_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+#endif
+
+// Observation row r of a State (the reference's _obs_rows, the engine's
+// observe_vector).
+__device__ __forceinline__ float obs_row(const State& s, int r) {
+  if (r < kHand * 17) {
+    const int p = r / 17, k = r % 17;
+    const bool present = p < s.hn && s.hidx[p] >= 0;
+    return present && (k < 13 ? s.hrk[p] == k + 2 : s.hsu[p] == k - 13) ? 1.f : 0.f;
+  }
+  r -= kHand * 17;
+  if (r < kJok) return fdiv((float)s.jok[r], 150.f);
+  r -= kJok;
+  if (r < kLvl) return fdiv((float)s.lvl[r], 15.f);
+  r -= kLvl;
+  if (r < kShop) return fdiv((float)s.sty[r], 4.f);
+  r -= kShop;
+  if (r < kShop) return fminf(1.f, fdiv((float)s.sco[r], 1000.f));
+  r -= kShop;
+  if (r < 4) return s.phase == r ? 1.f : 0.f;
+  switch (r - 4) {
+    case 0: return fdiv((float)s.money, 20.f);
+    case 1: return fdiv((float)s.ante, 8.f);
+    case 2: return fdiv((float)s.round, 3.f);
+    case 3: return fdiv((float)s.hl, 4.f);
+    case 4: return fdiv((float)s.dl, 3.f);
+    case 5: return fminf(2.f, fdiv((float)s.rchips, (float)(s.need > 1 ? s.need : 1)));
+    case 6: return fdiv(log1pf((float)s.need), 10.f);
+    case 7: return fdiv((float)s.jn, 5.f);
+    case 8: return fdiv((float)s.cn, 2.f);
+    case 9: return s.bact ? 1.f : 0.f;
+    case 10: return fdiv((float)(s.bact ? s.bid : 0), 28.f);
+    default: return (s.sel & 0xFFu) != 0 ? 1.f : 0.f;
+  }
+}
+
 // The observation rows of a State (the reference's _obs_rows, the engine's
-// observe_vector): env e of B, row r at obs[r * B + e].
+// observe_vector): env e of B, row r at obs[r * B + e]. K3a's straight-line
+// form of obs_row's expressions: a loop over obs_row made K3a 17-51% slower.
 __device__ void write_obs(const State& s, float* __restrict__ obs, int e, size_t B) {
   int r = 0;
   auto put = [&](float v) { obs[(size_t)(r++) * B + e] = v; };
@@ -105,23 +209,92 @@ __device__ void write_obs(const State& s, float* __restrict__ obs, int e, size_t
   put((s.sel & 0xFFu) != 0 ? 1.f : 0.f);
 }
 
+
 // The legal-action mask rows of a State (the engine's action_mask).
 __device__ void write_mask(const State& s, uint8_t* __restrict__ mask, int e, size_t B) {
   for (int a = 0; a < kActions; ++a) mask[(size_t)a * B + e] = legal(s, a) ? 1 : 0;
 }
 
-// K3b.
-__global__ void __launch_bounds__(kBlock)
+// K3b's phases for thread (lane l, warp g) of the block of envs from `base`.
+// Load: warp g runs the jobs j = g (mod kObserveGroups) of env base + l,
+// each reading some of the fields obs_row and legal read, as load_state
+// reads them, into the env's State slot: job p < 8 hand position p, then the
+// selection, phase and done flag; the jokers; the hand levels; the shop's
+// types and the money; the shop's costs; the round's scalars. No other field
+// of the slot is set.
+__device__ void observe_load(State* slots, const int* __restrict__ cards,
+                             const int* __restrict__ ints, int l, int g, int base, int n_envs) {
+  const int e = base + l;
+  if (e >= n_envs) return;
+  const size_t B = (size_t)n_envs;
+  State& s = slots[l];
+#define IN(r) ints[(size_t)(r) * B + e]
+  for (int j = g; j < kObserveJobs; j += kObserveGroups) {
+    if (j < kHand) {
+      const int h = IN(R_HIDX + j);
+      const bool in_deck = j < IN(S_HN) && h >= 0 && h < kDeck;
+      s.hidx[j] = h;
+      s.hrk[j] = in_deck ? cards[(size_t)(0 * kDeck + h) * B + e] : 0;
+      s.hsu[j] = in_deck ? cards[(size_t)(1 * kDeck + h) * B + e] : 0;
+      continue;
+    }
+    switch (j - kHand) {
+      case 0:
+        s.sel = 0;
+        for (int p = 0; p < kHand; ++p) s.sel |= (uint32_t)(IN(R_SEL + p) != 0) << p;
+        s.hn = IN(S_HN);
+        s.phase = IN(S_PHASE);
+        s.done = IN(S_DONE) != 0;
+        break;
+      case 1:
+        for (int i = 0; i < kJok; ++i) s.jok[i] = IN(R_JOK + i);
+        s.jn = IN(S_JN);
+        s.cn = IN(S_CN);
+        break;
+      case 2:
+        for (int h = 0; h < kLvl; ++h) s.lvl[h] = IN(R_LVL + h);
+        break;
+      case 3:
+        for (int r = 0; r < kShop; ++r) s.sty[r] = IN(R_STY + r);
+        s.sn = IN(S_SN);
+        s.money = IN(S_MONEY);
+        s.rcost = IN(S_RCOST);
+        break;
+      case 4:
+        for (int r = 0; r < kShop; ++r) s.sco[r] = IN(R_SCO + r);
+        break;
+      default:
+        s.ante = IN(S_ANTE); s.round = IN(S_ROUND); s.hl = IN(S_HL); s.dl = IN(S_DL);
+        s.rchips = IN(S_RCHIPS); s.need = IN(S_NEED); s.bid = IN(S_BID);
+        s.bact = IN(S_BACT) != 0;
+    }
+  }
+#undef IN
+}
+
+// Emit: warp g's observation and mask rows of env base + l.
+__device__ void observe_emit(const State* slots, float* __restrict__ obs,
+                             uint8_t* __restrict__ mask, int l, int g, int base, int n_envs) {
+  const int e = base + l;
+  if (e >= n_envs) return;
+  const size_t B = (size_t)n_envs;
+  const State& s = slots[l];
+  for (int r = g; r < kObs; r += kObserveGroups) obs[(size_t)r * B + e] = obs_row(s, r);
+  for (int a = g; a < kActions; a += kObserveGroups)
+    mask[(size_t)a * B + e] = legal(s, a) ? 1 : 0;
+}
+
+// K3b. The packed rng rows are not read: no observation row depends on them.
+__global__ void __launch_bounds__(kObserveBlock)
 policy_observe_kernel(const int* __restrict__ cards, const int* __restrict__ ints,
                       const uint32_t* __restrict__ rng, float* __restrict__ obs,
                       uint8_t* __restrict__ mask, int n_envs) {
-  const int e = blockIdx.x * kBlock + threadIdx.x;
-  if (e >= n_envs) return;
-  const size_t B = (size_t)n_envs;
-  State s;
-  load_state(s, cards, ints, rng, e, B);
-  write_obs(s, obs, e, B);
-  write_mask(s, mask, e, B);
+  __shared__ State slots[kObserveEnvs];
+  const int l = threadIdx.x % kObserveEnvs, g = threadIdx.x / kObserveEnvs;
+  const int base = blockIdx.x * kObserveEnvs;
+  observe_load(slots, cards, ints, l, g, base, n_envs);
+  __syncthreads();
+  observe_emit(slots, obs, mask, l, g, base, n_envs);
 }
 
 // K3a.
@@ -146,38 +319,122 @@ policy_step_kernel(const int* __restrict__ cards_in, const int* __restrict__ int
   write_mask(s, mask, e, B);
 }
 
-// Categorical sample of env e over its 60 logits, logits[e * s_env + a *
-// s_act] (the policy's [B, 60] output in whatever layout its last matmul
-// left: column-major makes these loads coalesce), with key (k0, k1), and
-// the log-softmax at the drawn action.
-__global__ void __launch_bounds__(kBlock)
-policy_sample_kernel(const float* __restrict__ logits, int64_t s_env, int64_t s_act,
-                     int n_envs, uint32_t k0, uint32_t k1, int* __restrict__ action,
-                     float* __restrict__ log_prob) {
-  const int e = blockIdx.x * kBlock + threadIdx.x;
-  if (e >= n_envs) return;
-  const float* l = logits + e * s_env;
+// The sampler's shared memory: the logits and the Gumbel noise of action a
+// of lane l at [a * kPitch + l], and each thread's partials.
+struct SampleSmem {
+  float logit[kActions * kPitch], noise[kActions * kPitch];
+  float best[kSampleGroups][kSampleEnvs], mx[kSampleGroups][kSampleEnvs];
+  float sum[kSampleGroups][kSampleEnvs];
+  int arg[kSampleGroups][kSampleEnvs];
+};
+
+// The sampler's phases for thread (lane l, warp g) of the block of envs from
+// `base`, over logits[e * s_env + a * s_act] (the policy's [B, 60] output in
+// whatever layout its last matmul left) with key (k0, k1); the thread's
+// actions are a = g + i * kSampleGroups.
+// Stage: the thread's share of the block's logits copied asynchronously (envs
+// fastest where their stride is the smaller, else actions), and, while they
+// travel, the Gumbel noise of its own actions.
+__device__ void sample_stage(SampleSmem& sm, const float* __restrict__ logits, int64_t s_env,
+                             int64_t s_act, int l, int g, int base, int n_envs, uint32_t k0,
+                             uint32_t k1) {
+  const int envs = min(kSampleEnvs, n_envs - base);
+  const bool env_fast = s_env <= s_act;
+  for (int i = g * kSampleEnvs + l; i < kActions * kSampleEnvs; i += kSampleBlock) {
+    const int a = env_fast ? i / kSampleEnvs : i % kActions;
+    const int m = env_fast ? i % kSampleEnvs : i / kActions;
+    if (m < envs) copy_async4(&sm.logit[a * kPitch + m], &logits[(base + m) * s_env + a * s_act]);
+  }
+  const int e = base + l;
+  if (e < n_envs) {
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      const int a = g + i * kSampleGroups;
+      const uint32_t bits = random_bits32(k0, k1, (uint32_t)a * (uint32_t)n_envs + (uint32_t)e);
+      // uniform(minval=tiny, maxval=1): f * (1 - tiny) + tiny, at least tiny
+      const float u = fmaxf(FLT_MIN, fadd(fmul(tf_uniform_f32(bits), 1.f), FLT_MIN));
+      sm.noise[a * kPitch + l] = -logf(-logf(u));
+    }
+  }
+  copy_async_wait();
+}
+
+// Partials: the best Gumbel-perturbed logit of the thread's actions (the
+// lowest action among equal ones) and their largest logit.
+__device__ void sample_partials(SampleSmem& sm, int l, int g, int base, int n_envs) {
+  if (base + l >= n_envs) return;
   float best = -INFINITY, mx = -INFINITY;
-  int arg = 0;
-  for (int a = 0; a < kActions; ++a) {
-    const float la = l[a * s_act];
-    const uint32_t bits = random_bits32(k0, k1, (uint32_t)a * (uint32_t)n_envs + (uint32_t)e);
-    // uniform(minval=tiny, maxval=1): f * (1 - tiny) + tiny, at least tiny
-    const float u = fmaxf(FLT_MIN, fadd(fmul(tf_uniform_f32(bits), 1.f), FLT_MIN));
-    const float v = fadd(la, -logf(-logf(u)));
+  int arg = g;
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i) {
+    const int a = g + i * kSampleGroups;
+    const float la = sm.logit[a * kPitch + l];
+    const float v = fadd(la, sm.noise[a * kPitch + l]);
     if (v > best) {
       best = v;
       arg = a;
     }
     mx = fmaxf(mx, la);
   }
-  float sum = 0.f;
-  for (int a = 0; a < kActions; ++a) sum = fadd(sum, expf(fsub(l[a * s_act], mx)));
-  action[e] = arg;
-  log_prob[e] = fsub(fsub(l[arg * s_act], mx), logf(sum));
+  sm.best[g][l] = best;
+  sm.arg[g][l] = arg;
+  sm.mx[g][l] = mx;
 }
 
-inline int grid_of(int n_envs) { return (n_envs + kBlock - 1) / kBlock; }
+__device__ __forceinline__ float sample_max(const SampleSmem& sm, int l) {
+  float mx = sm.mx[0][l];
+  for (int h = 1; h < kSampleGroups; ++h) mx = fmaxf(mx, sm.mx[h][l]);
+  return mx;
+}
+
+// Sums: expf(logit - max) over the thread's actions.
+__device__ void sample_sums(SampleSmem& sm, int l, int g, int base, int n_envs) {
+  if (base + l >= n_envs) return;
+  const float mx = sample_max(sm, l);
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPerThread; ++i)
+    sum = fadd(sum, expf(fsub(sm.logit[(g + i * kSampleGroups) * kPitch + l], mx)));
+  sm.sum[g][l] = sum;
+}
+
+// Write: warp 0 combines the groups in group order and writes env base + l's
+// action and log-softmax.
+__device__ void sample_write(const SampleSmem& sm, int l, int g, int base, int n_envs,
+                             int* __restrict__ action, float* __restrict__ log_prob) {
+  const int e = base + l;
+  if (g != 0 || e >= n_envs) return;
+  float best = sm.best[0][l], sum = sm.sum[0][l];
+  int arg = sm.arg[0][l];
+  for (int h = 1; h < kSampleGroups; ++h) {
+    const float v = sm.best[h][l];
+    const int a = sm.arg[h][l];
+    if (v > best || (v == best && a < arg)) {
+      best = v;
+      arg = a;
+    }
+    sum = fadd(sum, sm.sum[h][l]);
+  }
+  action[e] = arg;
+  log_prob[e] = fsub(fsub(sm.logit[arg * kPitch + l], sample_max(sm, l)), logf(sum));
+}
+
+// The sampler.
+__global__ void __launch_bounds__(kSampleBlock)
+policy_sample_kernel(const float* __restrict__ logits, int64_t s_env, int64_t s_act,
+                     int n_envs, uint32_t k0, uint32_t k1, int* __restrict__ action,
+                     float* __restrict__ log_prob) {
+  __shared__ SampleSmem sm;
+  const int l = threadIdx.x % kSampleEnvs, g = threadIdx.x / kSampleEnvs;
+  const int base = blockIdx.x * kSampleEnvs;
+  sample_stage(sm, logits, s_env, s_act, l, g, base, n_envs, k0, k1);
+  __syncthreads();
+  sample_partials(sm, l, g, base, n_envs);
+  __syncthreads();
+  sample_sums(sm, l, g, base, n_envs);
+  __syncthreads();
+  sample_write(sm, l, g, base, n_envs, action, log_prob);
+}
 
 }  // namespace
 
@@ -188,13 +445,28 @@ inline int grid_of(int n_envs) { return (n_envs + kBlock - 1) / kBlock; }
 // and mask rows [60, n_envs] u8 are written feature-major. Outputs are
 // allocated by the caller.
 
+// A kernel's launch shape and what the compiler gave it: out[0] threads a
+// block, out[1] shared bytes a block (dynamic and static), out[2] registers
+// a thread, out[3] local (stack) bytes a thread.
+template <typename Kernel>
+static int kernel_info(Kernel kernel, int block, size_t dynamic_smem, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = block;
+  out[1] = (int)(dynamic_smem + a.sharedSizeBytes);
+  out[2] = a.numRegs;
+  out[3] = (int)a.localSizeBytes;
+  return (int)cudaSuccess;
+}
+
 // K3b: observation and mask of a packed state.
 extern "C" int policy_observe_launch(const int* cards, const int* ints, const unsigned int* rng,
                                      float* obs, unsigned char* mask, int n_envs,
                                      void* stream) {
   if (n_envs <= 0) return (int)cudaSuccess;
-  policy_observe_kernel<<<grid_of(n_envs), kBlock, 0, (cudaStream_t)stream>>>(
-      cards, ints, rng, obs, mask, n_envs);
+  policy_observe_kernel<<<(n_envs + kObserveEnvs - 1) / kObserveEnvs, kObserveBlock, 0,
+                          (cudaStream_t)stream>>>(cards, ints, rng, obs, mask, n_envs);
   return (int)cudaGetLastError();
 }
 
@@ -226,28 +498,26 @@ extern "C" int policy_step_launch(const int* cards_in, const int* ints_in,
   return (int)cudaGetLastError();
 }
 
-// K3a's launch shape and what the compiler gave it: out[0] threads a block,
-// out[1] dynamic shared bytes a block, out[2] registers a thread, out[3]
-// local (stack) bytes a thread.
-extern "C" int policy_step_info(int* out) {
-  cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, policy_step_kernel);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = kStepBlock;
-  out[1] = (int)kStepSmem;
-  out[2] = a.numRegs;
-  out[3] = (int)a.localSizeBytes;
-  return (int)cudaSuccess;
-}
-
 // The sampler: logits [n_envs, 60] f32 with element strides (s_env, s_act)
 // -> action [n_envs] i32, log_prob [n_envs] f32; (k0, k1) is the step's key.
 extern "C" int policy_sample_launch(const float* logits, long long s_env, long long s_act,
                                     int n_envs, unsigned int k0, unsigned int k1, int* action,
                                     float* log_prob, void* stream) {
   if (n_envs <= 0) return (int)cudaSuccess;
-  policy_sample_kernel<<<grid_of(n_envs), kBlock, 0, (cudaStream_t)stream>>>(
-      logits, s_env, s_act, n_envs, k0, k1, action, log_prob);
+  policy_sample_kernel<<<(n_envs + kSampleEnvs - 1) / kSampleEnvs, kSampleBlock, 0,
+                         (cudaStream_t)stream>>>(logits, s_env, s_act, n_envs, k0, k1, action,
+                                                 log_prob);
   return (int)cudaGetLastError();
+}
+
+// Each kernel's launch shape (kernel_info's out[4]).
+extern "C" int policy_step_info(int* out) {
+  return kernel_info(policy_step_kernel, kStepBlock, kStepSmem, out);
+}
+extern "C" int policy_observe_info(int* out) {
+  return kernel_info(policy_observe_kernel, kObserveBlock, 0, out);
+}
+extern "C" int policy_sample_info(int* out) {
+  return kernel_info(policy_sample_kernel, kSampleBlock, 0, out);
 }
 #endif

@@ -150,22 +150,39 @@ def _kernel_lib():
     lib.policy_observe_launch.argtypes = [_P] * 5 + [_INT, _P]
     lib.policy_step_launch.argtypes = [_P] * 12 + [_INT, _P]
     lib.policy_sample_launch.argtypes = [_P, _I64, _I64, _INT, _UINT, _UINT, _P, _P, _P]
-    lib.policy_step_info.argtypes = [_P]
+    infos = (lib.policy_step_info, lib.policy_observe_info, lib.policy_sample_info)
+    for fn in infos:
+        fn.argtypes = [_P]
     for fn in (lib.policy_observe_launch, lib.policy_step_launch, lib.policy_sample_launch,
-               lib.policy_step_info):
+               *infos):
         fn.restype = ctypes.c_int
     return lib
 
 
-def step_kernel_shape():
-    """K3a's launch shape and what the compiler gave it, on the current
-    card: {"block": threads a block, "shared_bytes": dynamic shared memory a
-    block, "registers": a thread, "stack_bytes": local memory a thread}."""
+def _kernel_shape(name):
+    """A kernel's launch shape and what the compiler gave it, on the current
+    card: {"block": threads a block, "shared_bytes": shared memory a block,
+    "registers": a thread, "stack_bytes": local memory a thread}."""
     out = (ctypes.c_int * 4)()
-    err = _kernel_lib().policy_step_info(out)
+    err = getattr(_kernel_lib(), f"policy_{name}_info")(out)
     if err != 0:
-        raise RuntimeError(f"policy_step_info failed: cudaError_t {err}")
+        raise RuntimeError(f"policy_{name}_info failed: cudaError_t {err}")
     return dict(zip(("block", "shared_bytes", "registers", "stack_bytes"), out))
+
+
+def step_kernel_shape():
+    """K3a's launch shape (see ``_kernel_shape``)."""
+    return _kernel_shape("step")
+
+
+def observe_kernel_shape():
+    """K3b's launch shape (see ``_kernel_shape``)."""
+    return _kernel_shape("observe")
+
+
+def sample_kernel_shape():
+    """The sampler's launch shape (see ``_kernel_shape``)."""
+    return _kernel_shape("sample")
 
 
 def _launch(fn, name, dev, *args):

@@ -57,19 +57,25 @@ any failure raises and the run exits non-zero:
     K3a 256, sampler 256); every action legal under the mask its step
     consumed, finite log-probs <= 0, shapes and dtypes;
 11. policy parity: K3b, K3a and the sampler against their plain versions
-    on the same inputs along the main path's first 16 steps (8192 envs)
-    and K3a along phase 8's 16384 x 64 fed battery; the main path's
+    on the same inputs along the main path's first 16 steps (8192 envs),
+    the sampler on the logits in the layout the main path gives it and on a
+    copy in the other one (row-major or column-major), and K3a along phase
+    8's 16384 x 64 fed battery; the main path's
     recorded actions replayed through K2, step by step and in one call,
     give the same rewards, dones and final state;
 12. policy timing: median of 5 CUDA-event samples of the collection at
     8192 x 256, of K3a, K3b, the policy forward and the sampler called
     alone at 8192 envs (20 back-to-back calls) and of their plain
-    versions, of K3a on a no-autoreset and an all-autoreset batch (the
+    versions, of the sampler on the other layout's copy and on logits made
+    as the trainer makes them (a bf16 policy on the normalised
+    observation, phase 17's layout), each with its logits' strides, of K3a
+    on a no-autoreset and an all-autoreset batch (the
     main path's state at step 16 with the no-op action 59, without and with
     ante 101: ops/fused_full_battery.py's ``reset_batches``, each held
     against the plain step bit for bit before it is timed), and of the
-    plain collection at 8192 x 4; K3a's launch shape (block, shared
-    bytes, registers, stack) is read from the built kernel; the profiler gives
+    plain collection at 8192 x 4; K3a's, K3b's and the sampler's launch
+    shapes (block, shared bytes, registers, stack) are read from the built
+    kernels; the profiler gives
     each kernel's card time per launch and, over a 16-step collection, the
     card's idle share and card time per step; each kernel's bound (bytes
     over 3.35 TB/s or integer operations over the data sheet's INT32 rate)
@@ -105,8 +111,9 @@ any failure raises and the run exits non-zero:
     1e-6, metrics within 1e-5 relative;
 17. trainer timing: median of 5 updates at 8192 x 128 after a warm-up, as
     PPO env-steps/s; one update split into its stages (collection, stats,
-    last value + GAE, shuffle + SGD) by CUDA events; the card's idle share
-    of an update from the profiler's card time against the unprofiled
+    last value + GAE, shuffle + SGD) by CUDA events; K3a's, K3b's and the
+    sampler's card time a launch in the update (profiler); the card's idle
+    share of an update from the profiler's card time against the unprofiled
     update time; the host's enqueue of one K3a call (``step_fused`` on the
     trainer's 8192 envs, 100 back-to-back calls with no sync) and the time
     of a fixed Python loop, which say how fast the host that sets the
@@ -142,6 +149,7 @@ from balatro_gym_tpu_torch.ops import hand_histograms as HH
 from balatro_gym_tpu_torch.ops import kernel_rng as KR
 from balatro_gym_tpu_torch.train import ppo as TP
 from balatro_gym_tpu_torch.train.networks import ActorCritic
+from balatro_gym_tpu_torch.train.normalize import init_stats, normalize
 
 N_ENVS, N_STEPS = 131072, 256          # bench.py's headline shape
 BENCH_JOKERS = (1, 31, 34, 48, 72)
@@ -185,6 +193,10 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 ISSUE_PER_S = 132 * 128 * 1.98e9
 THREEFRY_OPS = 75
 PACKED_BYTES = (6 * 64 + FF.NI + FF.NR) * 4      # one env's packed state
+# packed int rows the observation and mask read: the hand's slots and
+# selection (16), jokers (5), levels (12), shop types and costs (20) and 16
+# scalars (csrc/fused_policy_rollout.cu's observe_load)
+K3B_ROWS = 69
 
 
 def log(phase, msg):
@@ -594,6 +606,22 @@ def phase_policy_main():
     return launches, net, st0, traj, final
 
 
+def other_layout(logits):
+    """A copy of ``[B, 60]`` logits in the other layout: row-major if they
+    are column-major, else column-major."""
+    return logits.contiguous() if logits.stride(0) == 1 else logits.T.contiguous().T
+
+
+def trainer_logits(obs, mask):
+    """Logits as the trainer's collection makes them (train/ppo.py's
+    ``rollout`` with ``bf16_compute``): a seeded bf16 ``ActorCritic(256,
+    256)`` on the observation normalised by fresh running statistics."""
+    net = ActorCritic(FP.N_ACTIONS, FP.OBS_DIM, (256, 256), compute_dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(0)).to(DEV)
+    with torch.no_grad():
+        return net(normalize(init_stats(FP.OBS_DIM, DEV), obs), mask)[0]
+
+
 def phase_policy_parity(net, st0, traj, final, battery):
     """Kernels against plain versions on the same inputs; K2 replay."""
     errs = {"K3a": 0.0, "K3b": 0.0, "sampler": 0.0}
@@ -606,12 +634,16 @@ def phase_policy_parity(net, st0, traj, final, battery):
     for t, key in enumerate(FP.step_keys(0, POLICY_STEPS)[:POLICY_CHECK_STEPS]):
         with torch.no_grad():
             logits, _ = net(obs, mask)
-        a, lp = FP.sample_fused(key, logits, device=DEV)
         pa, plp = FP.sample(key, logits)
-        assert torch.equal(a, pa), f"sampler step {t}: {int((a != pa).sum())} actions differ"
-        assert torch.equal(a, traj["action"][t]), f"step {t}: the main path's action differs"
-        errs["sampler"] = max(errs["sampler"], float((lp - plp).abs().max()))
-        assert errs["sampler"] <= 1e-6, f"sampler log_prob differs by {errs['sampler']}"
+        # the layout the main path gives the sampler, then the other one
+        for layout in (logits, other_layout(logits)):
+            a, lp = FP.sample_fused(key, layout, device=DEV)
+            assert torch.equal(a, pa), (f"sampler step {t}, strides {layout.stride()}: "
+                                        f"{int((a != pa).sum())} actions differ")
+            assert torch.equal(a, traj["action"][t]), f"step {t}: the main path's action differs"
+            errs["sampler"] = max(errs["sampler"], float((lp - plp).abs().max()))
+            assert errs["sampler"] <= 1e-6, f"sampler log_prob differs by {errs['sampler']}"
+        strides = (logits.stride(), other_layout(logits).stride())
         out = FP.step_fused(packed, a, device=DEV)
         e, n = assert_step_equal(out, FP.step_rows_reference(packed, a), f"K3a step {t}")
         errs["K3a"], log1p_diff["K3a"] = max(errs["K3a"], e), log1p_diff["K3a"] + n
@@ -642,8 +674,10 @@ def phase_policy_parity(net, st0, traj, final, battery):
     assert torch.equal(whole["total_reward"], tot), "K2 replay: total reward differs"
     assert torch.equal(whole["episodes"], traj["done"].sum(0, dtype=torch.int32))
     log("11 policy parity", f"ok: {POLICY_ENVS}x{POLICY_CHECK_STEPS} of the main path: K3b, "
-        f"sampler and K3a == plain (actions bitwise, log_prob max abs err "
-        f"{errs['sampler']:.3g}); K3a == plain along the {script.shape[1]}x{len(script)} fed "
+        f"sampler and K3a == plain (the sampler on the main path's logits, strides "
+        f"{strides[0]}, and on a copy in the other layout, strides {strides[1]}: actions "
+        f"bitwise, log_prob max abs err {errs['sampler']:.3g}); K3a == plain along the "
+        f"{script.shape[1]}x{len(script)} fed "
         f"battery; "
         f"log1p row entries 1 ulp apart: K3b {log1p_diff['K3b']}, K3a {log1p_diff['K3a']}; "
         f"the main path's {POLICY_STEPS} recorded actions through K2 step by step and in "
@@ -679,13 +713,25 @@ def card_profile(fn):
     return 1.0 - busy / span, by_name
 
 
-def policy_work(n):
+def hand_cards(packed):
+    """Hand positions of a packed state that hold a deck card, summed over
+    its envs: K3b reads the rank and suit of each."""
+    ints = packed["ints"]
+    hidx = ints[FF.R_HIDX:FF.R_HIDX + 8]
+    pos = torch.arange(8, device=ints.device)[:, None]
+    return int(((pos < ints[FF.S_HN]) & (hidx >= 0) & (hidx < 64)).sum())
+
+
+def policy_work(n, cards):
     """(bytes, integer operations) of one launch of K3a, K3b and the sampler
-    at ``n`` envs: the packed state read (and written by K3a), the action,
-    reward and done, the observation and mask rows; 60 Threefry hashes an
-    env for the sampler."""
+    at ``n`` envs: for K3a the packed state read and written, the action,
+    reward and done, the observation and mask rows; for K3b the 69 packed
+    int rows that the observation and mask read, the rank and suit of each
+    of the ``cards`` hand cards, and the observation and mask rows; for the
+    sampler the logits, action and log-probability, and 60 Threefry hashes
+    an env."""
     return {"K3a": (n * (2 * PACKED_BYTES + 4 + 4 + 1 + 4 * FP.OBS_DIM + FP.N_ACTIONS), 0),
-            "K3b": (n * (PACKED_BYTES + 4 * FP.OBS_DIM + FP.N_ACTIONS), 0),
+            "K3b": (n * (K3B_ROWS * 4 + 4 * FP.OBS_DIM + FP.N_ACTIONS) + 2 * 4 * cards, 0),
             "sampler": (n * (4 * FP.N_ACTIONS + 4 + 4), n * FP.N_ACTIONS * THREEFRY_OPS)}
 
 
@@ -701,6 +747,7 @@ def phase_policy_timing(smi, net, mid):
     obs, mask = FP.observe_fused(packed, device=DEV)
     with torch.no_grad():
         logits, _ = net(obs, mask)
+    o_logits, t_logits = other_layout(logits), trainer_logits(obs, mask)
     key = FP.step_keys(1, 1)[0]
     calls = 20
 
@@ -725,6 +772,10 @@ def phase_policy_timing(smi, net, mid):
                 lambda: FP.observe_rows_reference(packed), "policy_observe_kernel"),
         "sampler": (lambda: FP.sample_fused(key, logits, device=DEV),
                     lambda: FP.sample(key, logits), "policy_sample_kernel"),
+        "sampler other_layout": (lambda: FP.sample_fused(key, o_logits, device=DEV), None,
+                                 "policy_sample_kernel"),
+        "sampler trainer": (lambda: FP.sample_fused(key, t_logits, device=DEV), None,
+                            "policy_sample_kernel"),
         "policy": (policy, None, ""),
     }
     times = {}
@@ -735,7 +786,10 @@ def phase_policy_timing(smi, net, mid):
         card_ms = (statistics.median(card) if kernel else sum(card) / calls) if card else None
         times[name] = {"call": call_ms, "card_ms": card_ms,
                        "plain": cuda_ms(plain) if plain is not None else None}
-    shape = FP.step_kernel_shape()
+    shapes = {"K3a": FP.step_kernel_shape(), "K3b": FP.observe_kernel_shape(),
+              "sampler": FP.sample_kernel_shape()}
+    layouts = {"sampler": logits.stride(), "sampler other_layout": o_logits.stride(),
+               "sampler trainer": t_logits.stride()}
     window = 16
     idle, by_name = card_profile(lambda: FP.collect_policy_fused(net, st, 1, window, device=DEV))
     top = sorted(((sum(ds), n) for n, ds in by_name.items()), reverse=True)[:6]
@@ -746,7 +800,8 @@ def phase_policy_timing(smi, net, mid):
     idle_run = None if card_step_ms is None else max(0.0, 1.0 - card_step_ms / step_ms)
 
     n = POLICY_ENVS
-    bounds = {k: bound(*w) for k, w in policy_work(n).items()}
+    cards = hand_cards(packed)
+    bounds = {k: bound(*w) for k, w in policy_work(n, cards).items()}
     rate = n * POLICY_STEPS / (coll_ms / 1e3)
     fmt = ", ".join
 
@@ -757,6 +812,8 @@ def phase_policy_timing(smi, net, mid):
         txt += f" call {c_med * 1e3:.1f} us (samples {fmt(f'{x * 1e3:.1f}' for x in c_all)})"
         if tm["plain"] is not None:
             txt += f", plain {tm['plain'][0]:.3f} ms"
+        if name in layouts:
+            txt += f", logits strides {layouts[name]}"
         if name in bounds:
             txt += f", bound {bounds[name][0] * 1e3:.2f} us ({bounds[name][1]}, data-sheet INT32)"
         return txt
@@ -767,9 +824,11 @@ def phase_policy_timing(smi, net, mid):
         f"{POLICY_PLAIN_STEPS}: median {plain_ms:.1f} ms (samples "
         f"{fmt(f'{x:.1f}' for x in plain_all)}) = "
         f"{plain_ms / POLICY_PLAIN_STEPS:.1f} ms/step; alone at {n} envs ({calls} back-to-back "
-        f"calls): {'; '.join(part_txt(k, v) for k, v in times.items())}; K3a "
-        f"{shape['block']} threads a block, {shape['shared_bytes']} B shared a block, "
-        f"{shape['registers']} registers, {shape['stack_bytes']} B stack; a {window}-step "
+        f"calls): {'; '.join(part_txt(k, v) for k, v in times.items())}; launch shapes: "
+        + "; ".join(f"{k} {v['block']} threads a block, {v['shared_bytes']} B shared a block, "
+                    f"{v['registers']} registers, {v['stack_bytes']} B stack"
+                    for k, v in shapes.items())
+        + f"; a {window}-step "
         f"collection under the profiler: "
         + ("not measured (no card activity in the profile)" if idle is None else
            f"card idle {idle:.4f} of its span, card time per step {card_step_ms * 1e3:.1f} us, "
@@ -778,7 +837,8 @@ def phase_policy_timing(smi, net, mid):
            f"{step_ms * 1e3:.1f} us = {idle_run:.4f}")
         + f" [{smi}]")
     return {"coll_ms": coll_ms, "plain_coll_ms": plain_ms, "times": times, "bounds": bounds,
-            "rate": rate, "idle": idle_run, "idle_profiled": idle, "k3a_shape": shape}
+            "rate": rate, "idle": idle_run, "idle_profiled": idle, "shapes": shapes,
+            "layouts": layouts, "hand_cards": cards}
 
 
 def hist_work(n):
@@ -978,6 +1038,11 @@ def phase_train_timing(smi, ts, update_fn):
     card_ms = sum(map(sum, by_name.values())) if by_name else None
     idle = None if card_ms is None else max(0.0, 1.0 - card_ms / upd_ms)
     top = sorted(((sum(ds), len(ds), n) for n, ds in by_name.items()), reverse=True)[:8]
+    in_trainer = {}                      # the policy kernels' card time a launch in the update
+    for name, kernel in (("K3a", "policy_step_kernel"), ("K3b", "policy_observe_kernel"),
+                         ("sampler", "policy_sample_kernel")):
+        ds = [d for n, dl in by_name.items() if kernel in n for d in dl]
+        in_trainer[name] = {"launches": len(ds), "us": statistics.median(ds) * 1e3 if ds else None}
     rate = steps / (upd_ms / 1e3)
     envs = state["ts"].env_states
     noop = torch.full((cfg.n_envs,), 59, dtype=torch.int32, device=DEV)
@@ -990,13 +1055,17 @@ def phase_train_timing(smi, ts, update_fn):
         + ("card activity not measured (no card activity in the profile)" if card_ms is None
            else f"card time an update {card_ms:.3f} ms (profiler) -> card idle share "
                 f"{idle:.4f} of the unprofiled update ({idle_prof:.4f} of the profiled one); "
-                f"top kernels {[(n[:48], c, round(ms, 3)) for ms, c, n in top]} (launches, ms)")
+                f"top kernels {[(n[:48], c, round(ms, 3)) for ms, c, n in top]} (launches, ms); "
+                f"policy kernels (median card us a launch, launches): "
+                + ", ".join(f"{k} {v['us']:.1f} x{v['launches']}" for k, v in in_trainer.items()
+                            if v["us"] is not None))
         + f"; host: one step_fused call enqueued in {step_us:.1f} us (median of 5 x 100 "
         f"back-to-back calls), a fixed Python loop {loop_ms:.1f} ms [{smi}]")
     return {"update_ms": upd_ms, "update_ms_samples": times, "host_update_ms": host,
             "env_steps_per_s": rate, "stages_ms": stages, "card_ms_per_update": card_ms,
             "card_idle_share": idle, "card_idle_share_profiled": idle_prof,
             "top_kernels": [{"name": n, "launches": c, "ms": ms} for ms, c, n in top],
+            "policy_kernels_us": in_trainer,
             "host_step_fused_us": step_us, "host_loop_ms": loop_ms}
 
 
@@ -1029,7 +1098,7 @@ def main():
             "fused_full_rollout": (N_ENVS * (2 * PACKED_BYTES + 8),
                                    N_ENVS * (N_STEPS + 1) * THREEFRY_OPS),
             **{k: w for k, w in zip(("policy_step", "policy_observe", "policy_sample"),
-                                    policy_work(POLICY_ENVS).values())},
+                                    policy_work(POLICY_ENVS, pt["hand_cards"]).values())},
             "hand_histograms": hist["work"], "alu_chains": alu["work"]}
     src = "balatro_gym_tpu_torch/csrc/"
     policy_src = src + "fused_policy_rollout.cu"
@@ -1058,15 +1127,19 @@ def main():
             "ms": tm["card_ms"] if tm["card_ms"] is not None else call_ms,
             "plain_ms": tm["plain"][0],
             "ms_from": "profiler" if tm["card_ms"] is not None else "events",
-            "call_ms": call_ms, "shape": [POLICY_ENVS]})
+            "call_ms": call_ms, "shape": [POLICY_ENVS], **pt["shapes"][name]})
     kernels[-3]["collection_ms"] = pt["coll_ms"]
     kernels[-3]["collection_shape"] = [POLICY_ENVS, POLICY_STEPS]
     kernels[-3]["plain_collection_ms"] = pt["plain_coll_ms"]
     kernels[-3]["plain_collection_shape"] = [POLICY_ENVS, POLICY_PLAIN_STEPS]
-    kernels[-3].update(pt["k3a_shape"])
     kernels[-3].update({f"{k}_ms": pt["times"][f"K3a {k}"]["card_ms"]
                         for k in ("no_reset", "all_reset")})
     kernels[-3]["card_idle_share"] = pt["idle"]
+    kernels[-1].update({"logits_strides": pt["layouts"]["sampler"],
+                        "other_layout_ms": pt["times"]["sampler other_layout"]["card_ms"],
+                        "other_layout_strides": pt["layouts"]["sampler other_layout"],
+                        "trainer_layout_ms": pt["times"]["sampler trainer"]["card_ms"],
+                        "trainer_layout_strides": pt["layouts"]["sampler trainer"]})
     kernels[-3]["card_idle_share_profiled"] = pt["idle_profiled"]
     kernels.append({
         "name": "hand_histograms", "route": "cuda", "source": src + "hand_histograms.cu",

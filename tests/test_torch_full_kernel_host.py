@@ -7,12 +7,14 @@ and the sampler) with g++ through a small shim: the CUDA
 qualifiers become plain C++, the float intrinsics become the same IEEE
 operations (``-ffp-contract=off`` keeps multiplies and adds apart, as the
 ``_rn`` intrinsics do on the card), ``__float2int_rz`` saturates as the
-card's conversion does, and the threads run one after another. A field
-that ``load_state`` failed to set would show: the build fills every
-uninitialised local (K2's and K3b's State) with a junk pattern
-(``-ftrivial-auto-var-init=pattern``), and K3a's dynamic shared memory is a
-host array of its block's State slots, each filled with a junk pattern
-before its thread runs. What this cannot check (the build
+card's conversion does, and the threads run one after another; for K3b
+and the sampler, whose threads share an env through shared memory, block
+by block, each phase of the kernel (the code between two ``__syncthreads``)
+for every thread of the block before the next. A field that a kernel
+failed to set would show: the build fills every uninitialised local (K2's
+State) with a junk pattern (``-ftrivial-auto-var-init=pattern``), and the
+shared memory of K3a, K3b and the sampler is a host array filled with a
+junk pattern before each thread (K3a) or block runs. What this cannot check (the build
 for sm_90a, the launch, local and shared memory, ``logf`` of the card's
 math library) is checked on the card by
 tests/test_torch_full_rollout_cuda.py, tests/test_torch_policy_rollout_cuda.py and
@@ -96,6 +98,11 @@ inline int __popc(uint32_t x) { return __builtin_popcount(x); }
 inline int __popcll(uint64_t x) { return __builtin_popcountll(x); }
 inline int __ffs(uint32_t x) { return __builtin_ffs((int)x); }
 inline int __ffsll(uint64_t x) { return __builtin_ffsll((long long)x); }
+// A block's threads run phase by phase (see POLICY_LAUNCH), so a barrier is
+// nothing, and an asynchronous copy into shared memory is a plain one.
+inline void __syncthreads() {}
+inline void copy_async4(void* dst, const void* src) { memcpy(dst, src, 4); }
+inline void copy_async_wait() {}
 """
 
 HOST_LAUNCH = r"""
@@ -308,27 +315,63 @@ POLICY_LAUNCH = r"""
 #include "fused_policy_rollout.cu"
 namespace {
 __attribute__((aligned(16))) unsigned char k3a_slots[kStepSmem];
+State observe_slots[kObserveEnvs];
+SampleSmem sample_smem;
 }
-static void at(int e, int block = kBlock) { blockIdx.x = e / block; threadIdx.x = e % block; }
-extern "C" void host_observe(const int* c, const int* i, const uint32_t* r, float* obs,
-                             uint8_t* mask, int n) {
-  for (int e = 0; e < n; ++e) { at(e); policy_observe_kernel(c, i, r, obs, mask, n); }
-}
+// K3a: one thread an env; its State slot filled with junk before it runs.
 extern "C" void host_step(const int* c, const int* i, const uint32_t* r, const int* act,
                           const float* ft, int* co, int* io, uint32_t* ro, float* rw,
                           uint8_t* done, float* obs, uint8_t* mask, int n) {
   for (int e = 0; e < n; ++e) {
-    at(e, kStepBlock);
+    blockIdx.x = e / kStepBlock;
+    threadIdx.x = e % kStepBlock;
     memset(k3a_slots + threadIdx.x * sizeof(State), 0xA5, sizeof(State));
     policy_step_kernel(c, i, r, act, ft, co, io, ro, rw, done, obs, mask, n);
   }
 }
+// K3b and the sampler, block by block: each phase runs for every thread of
+// the block before the next one starts (the kernels' __syncthreads), over
+// shared memory filled with junk before the block runs.
+extern "C" void host_observe(const int* c, const int* i, float* obs, uint8_t* mask, int n) {
+  State* slots = observe_slots;
+  for (int base = 0; base < n; base += kObserveEnvs) {
+    memset(slots, 0xA5, sizeof observe_slots);
+    for (int t = 0; t < kObserveBlock; ++t)
+      observe_load(slots, c, i, t % kObserveEnvs, t / kObserveEnvs, base, n);
+    for (int t = 0; t < kObserveBlock; ++t)
+      observe_emit(slots, obs, mask, t % kObserveEnvs, t / kObserveEnvs, base, n);
+  }
+}
 extern "C" void host_sample(const float* logits, int64_t s_env, int64_t s_act, int n,
                             uint32_t k0, uint32_t k1, int* act, float* lp) {
-  for (int e = 0; e < n; ++e) {
-    at(e);
-    policy_sample_kernel(logits, s_env, s_act, n, k0, k1, act, lp);
+  SampleSmem& sm = sample_smem;
+  for (int base = 0; base < n; base += kSampleEnvs) {
+    memset(&sm, 0xA5, sizeof sm);
+    for (int t = 0; t < kSampleBlock; ++t)
+      sample_stage(sm, logits, s_env, s_act, t % kSampleEnvs, t / kSampleEnvs, base, n, k0, k1);
+    for (int t = 0; t < kSampleBlock; ++t)
+      sample_partials(sm, t % kSampleEnvs, t / kSampleEnvs, base, n);
+    for (int t = 0; t < kSampleBlock; ++t) sample_sums(sm, t % kSampleEnvs, t / kSampleEnvs, base, n);
+    for (int t = 0; t < kSampleBlock; ++t)
+      sample_write(sm, t % kSampleEnvs, t / kSampleEnvs, base, n, act, lp);
   }
+}
+extern "C" int host_sample_groups() { return kSampleGroups; }
+// The sampler's write phase for one env on given partials: group h's best
+// perturbed logit best[h] at action arg[h], each group's largest logit 0 and
+// exponential sum 1.
+extern "C" int host_sample_combine(const float* best, const int* arg) {
+  SampleSmem& sm = sample_smem;
+  memset(&sm, 0, sizeof sm);
+  for (int h = 0; h < kSampleGroups; ++h) {
+    sm.best[h][0] = best[h];
+    sm.arg[h][0] = arg[h];
+    sm.sum[h][0] = 1.f;
+  }
+  int action = -1;
+  float lp = 0.f;
+  sample_write(sm, 0, 0, 0, 1, &action, &lp);
+  return action;
 }
 """
 
@@ -338,18 +381,19 @@ LOG1P_ROW = FP.OBS_DIM - 6       # log1p(chips_needed) / 10: a library function
 @pytest.fixture(scope="module")
 def host_policy(tmp_path_factory):
     so = _compile(tmp_path_factory, POLICY_LAUNCH)
-    so.host_observe.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int]
+    so.host_observe.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
     so.host_step.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int]
     so.host_sample.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                                ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
                                ctypes.c_void_p]
+    so.host_sample_combine.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
 
     def rows(n):
         return (torch.empty(FP.OBS_DIM, n), torch.empty(FP.N_ACTIONS, n, dtype=torch.bool))
 
     def observe(packed):
         obs, mask = rows(packed["ints"].shape[1])
-        so.host_observe(*(packed[k].data_ptr() for k in ("cards", "ints", "rng")),
+        so.host_observe(packed["cards"].data_ptr(), packed["ints"].data_ptr(),
                         obs.data_ptr(), mask.data_ptr(), obs.shape[1])
         return obs.T, mask.T
 
@@ -371,6 +415,13 @@ def host_policy(tmp_path_factory):
                        lp.data_ptr())
         return action, lp
 
+    def combine(best, arg):
+        best = np.ascontiguousarray(best, np.float32)
+        arg = np.ascontiguousarray(arg, np.int32)
+        return so.host_sample_combine(best.ctypes.data, arg.ctypes.data)
+
+    sample.groups = so.host_sample_groups()
+    sample.combine = combine
     return observe, step, sample
 
 
@@ -433,6 +484,71 @@ def test_host_policy_kernels_along_a_collection(host_policy):
         assert_step_equal(step(packed, want[0]), ref, f"step {t}")
         packed, _, _, obs, mask = ref
     assert F._load(packed)["phase"].eq(0).any()
+
+
+SMALL_SIZES = (1, 31, 33, 257, 512)      # partial blocks of 32 envs; 512 whole ones
+
+
+def _diversified(n):
+    """A surgically diversified state of ``n`` envs and a 4-step legal
+    script from it."""
+    return _battery(n, 4, np.random.default_rng(n))
+
+
+@pytest.mark.parametrize("n", SMALL_SIZES)
+def test_host_observe_partial_blocks(host_policy, n):
+    """K3b, its State slots filled with junk but the fields its warps load,
+    against the plain version on the default reset and along a 4-step legal
+    script from a diversified state."""
+    observe, _, _ = host_policy
+    packed = F.pack_full_state(F.default_reset(n, n, "cpu"))
+    assert_obs_mask(observe(packed), FP.observe_rows_reference(packed), f"n={n} reset")
+    st, script = _diversified(n)
+    packed = F.pack_full_state(st)
+    for t, a in enumerate(script):
+        assert_obs_mask(observe(packed), FP.observe_rows_reference(packed), f"n={n} step {t}")
+        packed = FP.step_rows_reference(packed, torch.as_tensor(a))[0]
+    assert_obs_mask(observe(packed), FP.observe_rows_reference(packed), f"n={n} end")
+
+
+@pytest.mark.parametrize("n", SMALL_SIZES)
+def test_host_sampler_partial_blocks(host_policy, n):
+    """The sampler in both logits layouts against ``sample``, on a policy's
+    logits of a diversified state, where every third env has no legal
+    action: its 60 logits are -1e9, every perturbed value rounds to -1e9,
+    and the lowest action, 0, must win the tie."""
+    _, _, sample = host_policy
+    net = ActorCritic(FP.N_ACTIONS, FP.OBS_DIM, generator=torch.Generator().manual_seed(n))
+    obs, mask = FP.observe_rows_reference(F.pack_full_state(_diversified(n)[0]))
+    mask[::3] = False
+    with torch.no_grad():
+        logits, _ = net(obs, mask)
+    for t, key in enumerate(FP.step_keys(n, 3)):
+        want = FP.sample(key, logits)
+        assert bool((want[0][::3] == 0).all())
+        for layout in (logits.contiguous(), logits.T.contiguous().T):
+            got = sample(key, layout)
+            assert torch.equal(got[0][::3], want[0][::3]), f"n={n} key {t}"
+            assert_samples_agree(got, want, key, logits, f"n={n} key {t}")
+
+
+def test_host_sampler_combine_ties(host_policy):
+    """The sampler's combine over its action groups (group h holds actions
+    h, h + G, ...): among equal best values the lowest action wins, in
+    whichever group it lies; a larger value wins over a lower action."""
+    _, _, sample = host_policy
+    G = sample.groups
+    first, last = np.arange(G), np.arange(G) + 60 - G        # each group's first and last action
+    ties = np.full(G, -1.0)
+    ties[[0, -1]] = 2.0
+    assert sample.combine(ties, np.r_[last[:-1], first[-1]]) == G - 1      # a later group, lower
+    assert sample.combine(ties, last) == last[0]                           # an earlier group, lower
+    assert sample.combine(np.zeros(G), np.r_[last[:-1], first[-1]]) == G - 1
+    assert sample.combine(np.zeros(G), first) == 0
+    larger = np.zeros(G)
+    larger[-1] = 0.5
+    assert sample.combine(larger, first) == G - 1
+    assert sample.combine(np.full(G, -np.inf), first) == 0
 
 
 def test_host_policy_step_fed_battery(host_policy):

@@ -1,0 +1,70 @@
+"""The host side of ``ops/policy_kernels_ab.py``, the card tool that compares
+builds of the policy-collection kernels, on the CPU: its inputs, and the
+contract by which it holds each build's outputs against the plain versions
+(K3b bit for bit but the log1p row within 1 ulp, the sampler's actions bit
+for bit and log-probs within 1e-6, K3a bit for bit but that row)."""
+import pytest
+import torch
+
+from balatro_gym_tpu_torch.ops import fused_full_rollout as FF
+from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
+from balatro_gym_tpu_torch.ops import policy_kernels_ab as AB
+
+N = 40
+
+
+@pytest.fixture(scope="module")
+def plain():
+    """The tool's inputs at N envs and the plain version's outputs (one
+    intra-op thread, so parallel test workers do not oversubscribe)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    inp = AB.inputs(N, "cpu")
+    out = {("observe", "mid"): FP.observe_rows_reference(inp["packed"])}
+    for name, logits in inp["logits"].items():
+        out["sample", name] = FP.sample(inp["key"], logits)
+    for name, (p, a) in inp["step"].items():
+        out["step", name] = FP.step_rows_reference(p, a)
+    torch.set_num_threads(threads)
+    return inp, out
+
+
+def test_inputs(plain):
+    """Mid-game envs, logits in both layouts and the trainer's, and the
+    three K3a batches (the autoreset ones end every env, or none)."""
+    inp, out = plain
+    logits = inp["logits"]
+    assert logits["policy"].stride() == (1, N) and logits["row_major"].stride() == (60, 1)
+    assert torch.equal(logits["policy"], logits["row_major"])
+    assert logits["trainer"].shape == (N, 60) and logits["trainer"].dtype == torch.float32
+    assert bool((FF._load(inp["packed"])["phase"] == 0).any())             # some envs in play
+    assert not bool(out["step", "no_reset"][2].any()) and bool(out["step", "all_reset"][2].all())
+
+
+@pytest.mark.parametrize("kernel,name", [("observe", "mid"), ("sample", "policy"),
+                                         ("step", "mid")])
+def test_agrees_holds_the_contract(plain, kernel, name):
+    """The plain outputs agree with themselves; one entry off (a log-prob by
+    2e-6, any other entry by one) does not, but the log1p row by 1 ulp."""
+    want = plain[1][kernel, name]
+    assert AB.agrees(kernel, want, want)
+    if kernel == "sample":
+        assert AB.agrees(kernel, want, (want[0], want[1] + 5e-7))
+        bad = [(want[0] + 1, want[1]), (want[0], want[1] + 2e-6)]
+    else:
+        obs = 0 if kernel == "observe" else 3
+        ulp = [w.clone() if torch.is_tensor(w) else w for w in want]
+        ulp[obs][:, AB.LOG1P_ROW] = torch.nextafter(ulp[obs][:, AB.LOG1P_ROW],
+                                                    torch.tensor(2.0))
+        assert AB.agrees(kernel, ulp, want)
+        off = [w.clone() if torch.is_tensor(w) else w for w in want]
+        off[obs][0, 0] += 1
+        bad = [off]
+    for got in bad:
+        assert not AB.agrees(kernel, got, want)
+
+
+def test_summary():
+    s = AB.summary([4.0, 1.0, 3.0, 2.0, 5.0])
+    assert (s["median_us"], s["iqr_us"]) == (3.0, 3.0)
+    assert s["samples_us"] == [4.0, 1.0, 3.0, 2.0, 5.0]

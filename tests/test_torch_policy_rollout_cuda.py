@@ -13,6 +13,9 @@ the sampler's log-probability (a sum of 60 ``expf`` in another order than
 torch's ``log_softmax``), within 1e-6. Packed states, rewards, dones, masks,
 every other observation row and the sampled actions are bit for bit.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +29,13 @@ pytestmark = pytest.mark.cuda
 
 SIZES = (1, 31, 33, 257, 1000, 1025, 8192, 8193)  # K3a: 32-thread blocks
 LOG1P_ROW = FP.OBS_DIM - 6
+SOURCE = (Path(FP.__file__).resolve().parents[1] / "csrc" / "fused_policy_rollout.cu").read_text()
+STATE_BYTES = 888
+
+
+def declared(name):
+    """An int constant as csrc/fused_policy_rollout.cu declares it."""
+    return int(re.search(r"\b%s = (\d+)[,;]" % name, SOURCE).group(1))
 
 
 @pytest.fixture(scope="module")
@@ -121,7 +131,54 @@ def test_step_kernel_equals_plain_on_the_autoreset_batches(dev):
 def test_step_kernel_shape(dev):
     """K3a runs 32 threads a block, each env's 888 B State in shared memory."""
     shape = FP.step_kernel_shape()
-    assert shape["block"] == 32 and shape["shared_bytes"] == 32 * 888, shape
+    assert shape["block"] == 32 and shape["shared_bytes"] == 32 * STATE_BYTES, shape
+
+
+def test_observe_kernel_shape(dev):
+    """K3b runs kObserveGroups threads for each of a block's 32 envs, with
+    the envs' 888 B States in shared memory, and no stack."""
+    shape = FP.observe_kernel_shape()
+    envs, groups = declared("kObserveEnvs"), declared("kObserveGroups")
+    assert envs == 32 and shape["block"] == envs * groups, shape
+    assert shape["shared_bytes"] == envs * STATE_BYTES, shape
+    assert shape["stack_bytes"] == 0, shape
+
+
+def test_sample_kernel_shape(dev):
+    """The sampler runs kSampleGroups threads for each of a block's 32 envs,
+    with the logits and the noise (60 x 33 floats each) and each thread's
+    four partials in shared memory, and no stack."""
+    shape = FP.sample_kernel_shape()
+    envs, groups = declared("kSampleEnvs"), declared("kSampleGroups")
+    assert envs == 32 and shape["block"] == envs * groups, shape
+    assert shape["shared_bytes"] == 4 * (2 * FP.N_ACTIONS * (envs + 1) + 4 * groups * envs), shape
+    assert shape["stack_bytes"] == 0, shape
+
+
+@pytest.mark.parametrize("n", (1, 33, 257, 8192))
+def test_observe_and_sampler_equal_plain(dev, n):
+    """K3b on a diversified state and the sampler on a policy's logits of
+    it, in both layouts, against their plain versions; every third env has
+    no legal action (its logits all -1e9, so action 0 wins the tie)."""
+    rng = np.random.default_rng(n)
+    st = BAT.surgery(F.rollout_full_rows_reference(1, n, 4, device=dev)["state"], rng)
+    packed = F.pack_full_state(st)
+    n0 = _counts()
+    obs, mask = FP.observe_fused(packed)
+    assert_obs_mask((obs, mask), FP.observe_rows_reference(packed), "observe")
+    mask = mask.clone()
+    mask[::3] = False
+    with torch.no_grad():
+        logits, _ = _policy(dev)(obs, mask)
+    for t, key in enumerate(FP.step_keys(n, 4)):
+        want = FP.sample(key, logits)
+        assert bool((want[0][::3] == 0).all())
+        for layout in (logits.T.contiguous().T, logits.contiguous()):
+            action, log_prob = FP.sample_fused(key, layout)
+            assert torch.equal(action, want[0]), f"sample {t}, strides {layout.stride()}"
+            assert float((log_prob - want[1]).abs().max()) <= 1e-6, f"sample {t}"
+    torch.cuda.synchronize()
+    assert _counts() == (n0[0] + 1, n0[1], n0[2] + 8)
 
 
 def test_collection_equals_plain_and_replays_through_k2(dev):
