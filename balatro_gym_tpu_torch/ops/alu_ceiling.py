@@ -30,8 +30,6 @@ import collections
 import ctypes
 import functools
 import json
-import os
-import re
 import subprocess
 
 import torch
@@ -136,23 +134,7 @@ def sass_loop():
     ``{"instructions": n, "per_chain_round": n / 32, "opcodes": {...}}``.
     The loop is the longest backward branch's body, branch included."""
     _kernel_lib()
-    lib_path = cuda_build.build_log[_SOURCE]["path"]
-    tool = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
-    text = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
-                          check=True).stdout
-    body = text[text.index("alu_chains_kernel"):]
-    ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+((?:@!?U?P\w+\s+)?)([A-Z][A-Z0-9_.]*)([^;]*);",
-                     body)
-    addr = [int(a, 16) for a, _, _, _ in ins]
-    loops = []
-    for (a, _, op, args), at in zip(ins, addr):
-        m = re.search(r"0x([0-9a-f]+)", args)
-        if op.startswith("BRA") and m and int(m.group(1), 16) <= at:
-            loops.append((at - int(m.group(1), 16), int(m.group(1), 16), at))
-    if not loops:
-        raise RuntimeError("no loop found in the SASS of alu_chains_kernel")
-    _, lo, hi = max(loops)
-    ops = [op.split(".")[0] for (_, _, op, _), at in zip(ins, addr) if lo <= at <= hi]
+    ops = cuda_build.sass_loop(cuda_build.build_log[_SOURCE]["path"], "alu_chains_kernel")
     per = _ROUNDS_PER_ITER * ROWS
     return {"instructions": len(ops), "per_chain_round": len(ops) / per,
             "opcodes": dict(collections.Counter(ops).most_common())}

@@ -7,13 +7,15 @@ at the repository root, named by a hash of the source, the headers of
 ``csrc/``, the flags and the compiler, so an edited source or header is
 rebuilt and an unchanged one is reused.
 Nothing is built until a kernel is first launched; ``load_all`` builds
-several sources at once, one nvcc process each.
+several sources at once, one nvcc process each. ``sass_loop`` reads the
+machine code of a kernel's main loop from a built library.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -80,3 +82,26 @@ def load_all(sources) -> list:
         build_log[source] = {"seconds": time.perf_counter() - t0, "ptxas": ptxas,
                              "cached": proc is None, "path": str(lib_path)}
     return [_LOADED[s] for s in sources]
+
+
+def sass_loop(lib_path, kernel: str) -> list:
+    """The opcodes of ``kernel``'s longest loop in the library at
+    ``lib_path``, from ``cuobjdump -sass``: the body of its longest
+    backward branch, the branch included, in address order."""
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    start = text.rfind("Function : ", 0, text.index(kernel))
+    end = text.find("Function : ", start + 1)
+    body = text[start:end if end > 0 else len(text)]
+    ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+((?:@!?U?P\w+\s+)?)([A-Z][A-Z0-9_.]*)([^;]*);",
+                     body)
+    loops = []
+    for a, _, op, args in ins:
+        m = re.search(r"0x([0-9a-f]+)", args)
+        if op.startswith("BRA") and m and int(m.group(1), 16) <= int(a, 16):
+            loops.append((int(a, 16) - int(m.group(1), 16), int(m.group(1), 16), int(a, 16)))
+    if not loops:
+        raise RuntimeError(f"no loop found in the SASS of {kernel}")
+    _, lo, hi = max(loops)
+    return [op.split(".")[0] for a, _, op, _ in ins if lo <= int(a, 16) <= hi]

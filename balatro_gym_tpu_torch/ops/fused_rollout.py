@@ -12,7 +12,8 @@ per-env reward sum, in int32/float32 as the TPU kernel computes.
   with ``device="cpu"``, where it runs the plain version; on a card it
   launches ``csrc/fused_rollout.cu`` (built with nvcc on first use) or
   raises. It counts its launches in
-  ``rollout_fused.launches``.
+  ``rollout_fused.launches``; ``rollout_kernel_shape`` reads the kernel's
+  launch shape from the built library.
 * ``rollout_fused_reference`` is the plain version: batched tensor ops over
   ``[B]`` rows with a Python loop over steps, on any device. Its float
   arithmetic follows the kernel op for op (all additive terms are exact
@@ -324,12 +325,27 @@ _C_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_uint] * 2 + [ct
 def _kernel_lib():
     lib = cuda_build.load("fused_rollout.cu")
     lib.fused_rollout_launch.argtypes = _C_ARGS
-    lib.fused_rollout_launch.restype = ctypes.c_int
+    lib.fused_rollout_info.argtypes = [ctypes.c_void_p]
+    lib.fused_rollout_launch.restype = lib.fused_rollout_info.restype = ctypes.c_int
     return lib
 
 
+def rollout_kernel_shape():
+    """K4's launch shape and what the compiler gave it, on the current
+    card: {"block": threads a block, "shared_bytes": shared memory a block,
+    "registers": a thread, "stack_bytes": local memory a thread}."""
+    out = (ctypes.c_int * 4)()
+    err = _kernel_lib().fused_rollout_info(out)
+    if err != 0:
+        raise RuntimeError(f"fused_rollout_info failed: cudaError_t {err}")
+    return dict(zip(("block", "shared_bytes", "registers", "stack_bytes"), out))
+
+
 def _kernel_rows(coef, seed, actions, n_steps):
-    """Launches csrc/fused_rollout.cu on the coefficient rows' card."""
+    """Launches csrc/fused_rollout.cu on the coefficient rows' card. The
+    rows are ``joker_coefficients``' (non-negative integers, at most 5
+    copies of a joker): the kernel packs them into 16-bit halves and 4-bit
+    fields."""
     scal = coef[0]
     dev, B = scal.device, scal.shape[1]
     for t, name, rows in zip(coef, ("scal", "ranktab", "suittab", "handtab"),

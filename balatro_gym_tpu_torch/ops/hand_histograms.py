@@ -8,8 +8,10 @@ The reference keeps this primitive as a kernel template beside the jnp
 formulation that its scoring uses.
 
 * ``hand_histograms`` launches ``csrc/hand_histograms.cu`` on a card (one
-  thread per env) and counts its launches in ``hand_histograms.launches``;
-  with ``device="cpu"`` it runs the plain version.
+  thread per env, the block's rows staged in shared memory and stored
+  whole) and counts its launches in ``hand_histograms.launches``; with
+  ``device="cpu"`` it runs the plain version. ``kernel_shape`` reads the
+  kernel's launch shape from the built library.
 * ``hand_histograms_reference`` is the plain version, on any device.
 
 Every term is a small integer, so the sums are exact: kernel, plain version
@@ -50,8 +52,26 @@ def hand_histograms_reference(ranks, suits, mask):
 def _kernel_lib():
     lib = cuda_build.load("hand_histograms.cu")
     lib.hand_histograms_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
-    lib.hand_histograms_launch.restype = ctypes.c_int
+    lib.hand_histograms_info.argtypes = [ctypes.c_void_p]
+    lib.hand_histograms_launch.restype = lib.hand_histograms_info.restype = ctypes.c_int
     return lib
+
+
+def kernel_shape():
+    """K5's launch shape and what the compiler gave it, on the current card:
+    {"block": threads a block, "shared_bytes": shared memory a block,
+    "registers": a thread, "stack_bytes": local memory a thread}."""
+    out = (ctypes.c_int * 4)()
+    err = _kernel_lib().hand_histograms_info(out)
+    if err != 0:
+        raise RuntimeError(f"hand_histograms_info failed: cudaError_t {err}")
+    return dict(zip(("block", "shared_bytes", "registers", "stack_bytes"), out))
+
+
+def _aligned(t, n_bytes):
+    """``t``, or a copy of it where its data does not start on ``n_bytes``:
+    the kernel reads a row as vectors of that size."""
+    return t if t.data_ptr() % n_bytes == 0 else t.clone()
 
 
 def hand_histograms(ranks, suits, mask, *, device=None):
@@ -71,6 +91,7 @@ def hand_histograms(ranks, suits, mask, *, device=None):
     for name, t, dt in (("ranks", ranks, torch.int32), ("suits", suits, torch.int32),
                         ("mask", mask, torch.bool)):
         check_arg(t, name, dt, (n, N_CARDS), dev)
+    ranks, suits, mask = _aligned(ranks, 16), _aligned(suits, 16), _aligned(mask, 8)
     rhist = torch.empty(n, R_PAD, device=dev)
     shist = torch.empty(n, S_PAD, device=dev)
     chips = torch.empty(n, 1, device=dev)

@@ -33,9 +33,13 @@ any failure raises and the run exits non-zero:
    engine (states exact, reward within 2e-3);
 5. sampled parity: 131072 envs x 32 steps; kernel == plain version bit for
    bit, with the bench jokers, with Misprint and Bloodstone, and mixed;
-6. sim timing: median of 5 CUDA-event samples, as env-steps/s: the kernel
-   at 131072 x 256 (10 back-to-back calls per sample) and the plain
-   version at 131072 x 32 (one call per sample);
+6. sim timing: median of 5 CUDA-event samples, as env-steps/s: the call
+   at 131072 x 256 (10 back-to-back calls per sample, the joker
+   coefficients included), the kernel alone on its coefficient rows (10
+   back-to-back launches) and the plain version at 131072 x 32 (one call
+   per sample); K4's launch shape (block, shared bytes, registers, stack)
+   read from the built kernel, and the SASS of its step loop against the
+   source operations an env-step (``K4_STEP_OPS``);
 7. full-env main path: one sampled rollout at 131072 x 256 from the
    default reset, the launch counter reset before and read after; outputs
    checked for shape and range; the same call at 131072 x 32 equals its
@@ -85,6 +89,7 @@ any failure raises and the run exits non-zero:
     cards with ranks in [-1, 17] and suits in [-1, 9] (some outside every
     bin), the launch counter reset before and read after; kernel == plain
     bit for bit; median of 5 CUDA-event samples of 20 back-to-back calls;
+    K5's launch shape read from the built kernel;
 14. ALU ceiling (K6, csrc/alu_ceiling.cu): kernel == plain x 128 rounds at
     2 seeded tiles and on the probe's own inputs at both its shapes; the
     probe's entry point ``ops.alu_ceiling.main`` (launch counter reset
@@ -192,6 +197,28 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # instruction a clock, so 132 x 128 thread-instructions at 1.98 GHz.
 ISSUE_PER_S = 132 * 128 * 1.98e9
 THREEFRY_OPS = 75
+# K4's integer source operations an env-step, stage by stage, counted from
+# the algorithm as csrc/fused_rollout.cu states it (its note holds the same
+# table), at the bench jokers: sampled, no Four Fingers, Shortcut, Misprint
+# or Bloodstone, so one hash a step. A C operator, compare, select, shared
+# load or conversion counts one.
+K4_STEP_OPS = {
+    "hash and uniform action": THREEFRY_OPS + 8,
+    "decode and the selection": 8,
+    "of a kind (4 shifted compares of the rank word)": 69,
+    "flush (two suit candidates)": 31,
+    "present ranks": 25,
+    "straight (windows, wheel, scoring cards)": 63,
+    "hand type and scoring mask": 18,
+    "score (5 rank terms, 4 suit terms)": 105,
+    "mult terms (Half, Queens, Kings, Spade-or-Club)": 39,
+    "exponents and powers": 34,
+    "score product": 5,
+    "outcome": 14,
+    "refill from the deck window": 13,
+    "autoreset": 10,
+    "loop": 3,
+}
 PACKED_BYTES = (6 * 64 + FF.NI + FF.NR) * 4      # one env's packed state
 # packed int rows the observation and mask read: the hand's slots and
 # selection (16), jokers (5), levels (12), shop types and costs (20) and 16
@@ -417,17 +444,29 @@ def phase_timing(smi):
     k_ms, k_all = cuda_ms(lambda: FR.rollout_fused(1, N_ENVS, N_STEPS, BENCH_JOKERS,
                                                    device=DEV), calls=calls)
     assert FR.rollout_fused.launches == n0 + 1 + 5 * calls, "timed calls did not all launch"
+    coef = FR.joker_coefficients(BENCH_JOKERS, N_ENVS, device=DEV)
+    a_ms, a_all = cuda_ms(lambda: FR._kernel_rows(coef, 1, None, N_STEPS), calls=calls)
     plain_steps = 32
     p_ms, p_all = cuda_ms(lambda: FR.rollout_fused_reference(1, N_ENVS, plain_steps,
                                                              BENCH_JOKERS, device=DEV))
     k_rate = N_ENVS * N_STEPS / (k_ms / 1e3)
     p_rate = N_ENVS * plain_steps / (p_ms / 1e3)
-    log("6 timing", f"kernel {N_ENVS}x{N_STEPS} ({calls} calls per sample): median "
-        f"{k_ms:.3f} ms/call (samples {', '.join(f'{t:.3f}' for t in k_all)}) = "
-        f"{k_rate:.4g} env-steps/s; plain {N_ENVS}x{plain_steps}: median {p_ms:.1f} ms "
+    shape = FR.rollout_kernel_shape()
+    sass = cuda_build.sass_loop(cuda_build.build_log["fused_rollout.cu"]["path"],
+                                "fused_rollout_kernel")
+    log("6 timing", f"call {N_ENVS}x{N_STEPS} ({calls} calls per sample, the joker "
+        f"coefficients included): median {k_ms:.3f} ms (samples "
+        f"{', '.join(f'{t:.3f}' for t in k_all)}) = {k_rate:.4g} env-steps/s; kernel alone "
+        f"on its coefficient rows: median {a_ms:.3f} ms (samples "
+        f"{', '.join(f'{t:.3f}' for t in a_all)}) = {N_ENVS * N_STEPS / (a_ms / 1e3):.4g} "
+        f"env-steps/s; plain {N_ENVS}x{plain_steps}: median {p_ms:.1f} ms "
         f"(samples {', '.join(f'{t:.1f}' for t in p_all)}) = {p_rate:.4g} env-steps/s; "
-        f"kernel/plain {k_rate / p_rate:.1f}x [{smi}]")
-    return k_ms, p_ms, k_rate, p_rate
+        f"kernel/plain {k_rate / p_rate:.1f}x; K4 {shape['block']} threads a block, "
+        f"{shape['shared_bytes']} B shared a block, {shape['registers']} registers, "
+        f"{shape['stack_bytes']} B stack; step loop {len(sass)} SASS against "
+        f"{sum(K4_STEP_OPS.values())} source ops an env-step ({K4_STEP_OPS}) [{smi}]")
+    return {"ms": k_ms, "kernel_alone_ms": a_ms, "plain_ms": p_ms, "env_steps_per_s": k_rate,
+            "plain_env_steps_per_s": p_rate, "launch_shape": shape, "loop_sass": len(sass)}
 
 
 def assert_full_equal(k, p, what):
@@ -873,13 +912,16 @@ def phase_hist(smi):
                           calls=calls)
     p_ms, p_all = cuda_ms(lambda: HH.hand_histograms_reference(ranks, suits, mask))
     b = bound(*hist_work(n))
+    shape = HH.kernel_shape()
     log("13 hand histograms", f"ok: hand_histograms {n} envs launches={launches}; kernel == "
         f"plain bitwise ({outside} masked cards with a rank outside [0, 16) counted in no "
         f"bin); kernel median {k_ms * 1e3:.2f} us a call ({calls} back-to-back calls, samples "
         f"{', '.join(f'{t * 1e3:.2f}' for t in k_all)}), bound {b[0] * 1e3:.2f} us ({b[1]}), "
-        f"plain median {p_ms:.3f} ms (samples {', '.join(f'{t:.3f}' for t in p_all)}) [{smi}]")
+        f"plain median {p_ms:.3f} ms (samples {', '.join(f'{t:.3f}' for t in p_all)}); K5 "
+        f"{shape['block']} threads a block, {shape['shared_bytes']} B shared a block, "
+        f"{shape['registers']} registers, {shape['stack_bytes']} B stack [{smi}]")
     return {"launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "work": hist_work(n)}
+            "work": hist_work(n), "shape": shape}
 
 
 def phase_alu(smi):
@@ -1077,7 +1119,7 @@ def main():
     phase_build()
     launches = phase_main_path()
     err = max(phase_fed(), phase_sampled())
-    k_ms, p_ms, k_rate, p_rate = phase_timing(smi)
+    k4 = phase_timing(smi)
     full_launches, full_err = phase_full_main()
     fed_err, fed_st, fed_script = phase_full_fed()
     full_err = max(full_err, fed_err)
@@ -1094,7 +1136,7 @@ def main():
     # (bytes, integer operations) of each kernel's measured call
     work = {"fused_rollout": (N_ENVS * ((FR.N_SCAL + 32 + 32 + 64) * 4
                                         + (2 * FR.N_CARDS + 8 + 1) * 4),
-                              N_ENVS * (N_STEPS + 1) * THREEFRY_OPS),
+                              N_ENVS * (N_STEPS * sum(K4_STEP_OPS.values()) + THREEFRY_OPS)),
             "fused_full_rollout": (N_ENVS * (2 * PACKED_BYTES + 8),
                                    N_ENVS * (N_STEPS + 1) * THREEFRY_OPS),
             **{k: w for k, w in zip(("policy_step", "policy_observe", "policy_sample"),
@@ -1105,9 +1147,9 @@ def main():
     kernels = [{
         "name": "fused_rollout", "route": "cuda", "source": src + "fused_rollout.cu",
         "replaces": "balatro_gym_tpu/ops/fused_rollout.py:126",
-        "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+        "launches": launches, "max_abs_err": err, **k4,
         "shape": [N_ENVS, N_STEPS], "plain_shape": [N_ENVS, 32],
-        "env_steps_per_s": k_rate, "plain_env_steps_per_s": p_rate}, {
+        "step_ops": K4_STEP_OPS}, {
         "name": "fused_full_rollout", "route": "cuda", "source": src + "fused_full_rollout.cu",
         "replaces": "balatro_gym_tpu/ops/fused_full_rollout.py:2299",
         "launches": full_launches, "max_abs_err": full_err, "ms": fk_ms, "plain_ms": fp_ms,
@@ -1145,7 +1187,7 @@ def main():
         "name": "hand_histograms", "route": "cuda", "source": src + "hand_histograms.cu",
         "replaces": "balatro_gym_tpu/ops/pallas_kernels.py:44", "launches": hist["launches"],
         "max_abs_err": hist["max_abs_err"], "ms": hist["ms"], "plain_ms": hist["plain_ms"],
-        "shape": [HIST_ENVS, 8]})
+        "shape": [HIST_ENVS, 8], "launch_shape": hist["shape"]})
     kernels.append({
         "name": "alu_chains", "route": "cuda", "source": src + "alu_ceiling.cu",
         "replaces": "scripts/vpu_ceiling.py:28", "launches": alu["launches"],

@@ -88,6 +88,11 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __uint_as_float(uint32_t u) { float f; memcpy(&f, &u, 4); return f; }
+inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
+struct __attribute__((aligned(16))) int4 { int x, y, z, w; };
+struct __attribute__((aligned(16))) float4 { float x, y, z, w; };
+struct __attribute__((aligned(8))) uint2 { uint32_t x, y; };
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 inline int __float2int_rz(float x) {
   if (std::isnan(x)) return 0;
   if (x >= 2147483648.f) return INT_MAX;
@@ -95,6 +100,7 @@ inline int __float2int_rz(float x) {
   return (int)x;
 }
 inline int __popc(uint32_t x) { return __builtin_popcount(x); }
+inline int __clz(uint32_t x) { return x ? __builtin_clz(x) : 32; }
 inline int __popcll(uint64_t x) { return __builtin_popcountll(x); }
 inline int __ffs(uint32_t x) { return __builtin_ffs((int)x); }
 inline int __ffsll(uint64_t x) { return __builtin_ffsll((long long)x); }

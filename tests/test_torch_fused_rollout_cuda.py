@@ -7,8 +7,9 @@ torch and the port only and runs there with
     python -m pytest --noconftest -m cuda tests/test_torch_fused_rollout_cuda.py
 
 Tolerance: none. The kernel and the plain version (on the same card, same
-inputs) agree on every output bit for bit, in fed and sampled mode, for a
-ragged env count.
+inputs) agree on every output bit for bit, in fed and sampled mode, for
+ragged env counts (1, 257, 2048 + 37 and 131072 + 37 envs). The launch
+shape is the one the kernel was designed for: 1,024 threads an SM.
 """
 import numpy as np
 import pytest
@@ -92,6 +93,25 @@ def test_sampled_kernel_equals_plain(dev, jokers):
     k, p = _both(dev, 3, N, STEPS, jok)
     _assert_equal(k, p)
     assert int(k["episodes"].sum()) > 0
+
+
+def test_launch_shape(dev):
+    """K4's launch shape: 128-thread blocks, at least 8 an SM (so at most 64
+    registers and no stack), each env's 45-word table column, the 45 deck
+    windows and the two power tables in static shared memory."""
+    shape = FR.rollout_kernel_shape()
+    assert shape["block"] == 128 and shape["registers"] <= 64 and shape["stack_bytes"] == 0
+    assert shape["shared_bytes"] == 45 * 128 * 4 + 45 * 8 + (13 + 21) * 4
+
+
+@pytest.mark.parametrize("n", [1, 257, 131072 + 37])
+def test_sampled_kernel_equals_plain_at_sizes(dev, n):
+    """One env, a partial second block, and the bench shape's 131072 envs
+    plus a partial block: 32 sampled steps, mixed jokers below 131072."""
+    rng = np.random.default_rng(n)
+    jok = (np.asarray((1, 31, 34, 48, 72)) if n > 131072 else
+           JOKER_SETS[rng.integers(0, len(JOKER_SETS), n)])
+    _assert_equal(*_both(dev, n, n, 32, jok))
 
 
 def test_one_env_and_zero_steps(dev):

@@ -22,12 +22,16 @@ HOST_LAUNCH = r"""
 #define FULL_ROLLOUT_HOST_SHIM
 #include "shim.h"
 #include "hand_histograms.cu"
+namespace { HistSmem smem; }
+// Block by block: the count phase for every thread of the block, then the
+// copy-out phase (the kernel's __syncthreads between them), over shared
+// memory filled with junk before the block runs.
 extern "C" void host_hist(const int* r, const int* s, const uint8_t* m, const float* t,
                           float* rh, float* sh, float* ch, int n) {
-  for (int e = 0; e < n; ++e) {
-    blockIdx.x = e / kBlock;
-    threadIdx.x = e % kBlock;
-    hand_histograms_kernel(r, s, m, t, rh, sh, ch, n);
+  for (int base = 0; base < n; base += kBlock) {
+    memset(&smem, 0xA5, sizeof smem);
+    for (int i = 0; i < kBlock; ++i) hist_count(smem, r, s, m, t, ch, i, base, n);
+    for (int i = 0; i < kBlock; ++i) hist_copy_out(smem, rh, sh, i, base, n);
   }
 }
 """
@@ -76,14 +80,37 @@ def test_no_device_means_the_card(monkeypatch):
         HH.hand_histograms(*(torch.as_tensor(x) for x in inputs(256, 3)))
 
 
-def test_host_build_of_the_kernel_equals_plain(tmp_path_factory):
+@pytest.fixture(scope="module")
+def host_hist(tmp_path_factory):
     so = _compile(tmp_path_factory, HOST_LAUNCH)
     so.host_hist.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int]
+
+    def run(ranks, suits, mask):
+        n = ranks.shape[0]
+        out = (torch.full((n, 16), float("nan")), torch.full((n, 8), float("nan")),
+               torch.full((n, 1), float("nan")))
+        so.host_hist(ranks.data_ptr(), suits.data_ptr(), mask.data_ptr(),
+                     torch.as_tensor(HH.CHIP_TABLE).data_ptr(), *(o.data_ptr() for o in out), n)
+        return out
+    return run
+
+
+def test_host_build_of_the_kernel_equals_plain(host_hist):
     ranks, suits, mask = (torch.as_tensor(x) for x in inputs(768, 4))
-    n = ranks.shape[0]
-    out = (torch.empty(n, 16), torch.empty(n, 8), torch.empty(n, 1))
-    table = torch.as_tensor(HH.CHIP_TABLE)
-    so.host_hist(ranks.data_ptr(), suits.data_ptr(), mask.data_ptr(), table.data_ptr(),
-                 *(o.data_ptr() for o in out), n)
-    for g, w in zip(out, HH.hand_histograms_reference(ranks, suits, mask)):
+    for g, w in zip(host_hist(ranks, suits, mask),
+                    HH.hand_histograms_reference(ranks, suits, mask)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [256, 4096, 300])
+def test_host_build_block_by_block(host_hist, n):
+    """Every output written (the outputs start as NaN), out-of-range ranks
+    and suits in no bin, a ragged last block included (300 envs: the kernel
+    takes any count, the entry point tiles of 256)."""
+    ranks, suits, mask = (torch.as_tensor(x) for x in inputs(n, n))
+    got = host_hist(ranks, suits, mask)
+    want = HH.hand_histograms_reference(ranks, suits, mask)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    outside = int((((ranks < 0) | (ranks > 15)) & mask).sum())
+    assert outside > 0 and int(got[0].sum()) == int(mask.sum()) - outside

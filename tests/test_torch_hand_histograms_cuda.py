@@ -32,7 +32,7 @@ def _inputs(b, seed, dev):
     return ranks, suits, mask
 
 
-@pytest.mark.parametrize("b", [256, 512, 65536, 1 << 20])
+@pytest.mark.parametrize("b", [256, 512, 65536, 1 << 20, (1 << 20) + 256])
 def test_kernel_equals_plain(dev, b):
     ranks, suits, mask = _inputs(b, b, dev)
     n0 = HH.hand_histograms.launches
@@ -40,6 +40,24 @@ def test_kernel_equals_plain(dev, b):
     assert HH.hand_histograms.launches == n0 + 1
     for g, w in zip(got, HH.hand_histograms_reference(ranks, suits, mask)):
         assert g.device == dev and g.dtype == torch.float32
+        assert torch.equal(g, w)
+
+
+def test_launch_shape(dev):
+    """K5's launch shape: 256-thread blocks, the block's rank and suit rows
+    staged in static shared memory (256 x (16 + 8) floats), no stack."""
+    shape = HH.kernel_shape()
+    assert shape["block"] == 256 and shape["stack_bytes"] == 0
+    assert shape["shared_bytes"] == 256 * (16 + 8) * 4
+
+
+def test_misaligned_inputs(dev):
+    """Rows that do not start on 16 B (a view seven cards in) are copied
+    before the kernel reads them as vectors."""
+    views = [x.reshape(-1)[7:7 + 8 * 512].view(512, 8) for x in _inputs(513, 8, dev)]
+    assert views[0].data_ptr() % 16 and views[2].data_ptr() % 8
+    got = HH.hand_histograms(*views)
+    for g, w in zip(got, HH.hand_histograms_reference(*views)):
         assert torch.equal(g, w)
 
 
