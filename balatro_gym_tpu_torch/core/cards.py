@@ -55,6 +55,9 @@ class Seal(IntEnum):
 NUM_RANKS = 13          # ranks 2..14
 NO_CARD = 0             # rank sentinel for empty slots
 
+SUIT_SYMBOLS = "\u2663\u2666\u2665\u2660"  # clubs, diamonds, hearts, spades
+RANK_SHORT = {10: "T", 11: "J", 12: "Q", 13: "K", 14: "A"}
+
 # Base chip value per rank: 2-10 face value, J/Q/K = 10, A = 11.
 RANK_CHIPS = np.array([0, 0, 2, 3, 4, 5, 6, 7, 8, 9, 10, 10, 10, 10, 11],
                       dtype=np.int32)
@@ -83,3 +86,10 @@ def standard_deck_arrays():
     ranks = np.tile(np.arange(2, 15, dtype=np.int8), 4)
     suits = np.repeat(np.arange(4, dtype=np.int8), 13)
     return ranks, suits
+
+
+def card_str(rank: int, suit: int) -> str:
+    """A card as text, e.g. 'A\u2660'; '--' for an empty slot."""
+    if rank == NO_CARD:
+        return "--"
+    return f"{RANK_SHORT.get(int(rank), str(int(rank)))}{SUIT_SYMBOLS[int(suit)]}"

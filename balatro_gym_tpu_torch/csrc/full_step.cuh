@@ -1066,8 +1066,10 @@ __device__ void reset_state(State& s) {
 }
 
 // One step_autoreset. Returns the reward; sets done. kUnrolledReset: the
-// reset's form (see reset_state).
-template <bool kUnrolledReset>
+// reset's form (see reset_state). kAutoreset false: the engine's own step,
+// whose done envs keep their final state (done set, step count advanced)
+// for the caller to reset.
+template <bool kUnrolledReset, bool kAutoreset = true>
 __device__ float step(State& s, int a, const float* ft, bool& done) {
   const bool over = s.ante > 100 || s.career > 1000000000 || s.done;
   float reward = over ? 0.f : -1.f;
@@ -1126,7 +1128,9 @@ __device__ float step(State& s, int a, const float* ft, bool& done) {
   done = over || term;
   s.done = done;
   s.sc += 1;
-  if (done) reset_state<kUnrolledReset>(s);
+  if constexpr (kAutoreset) {
+    if (done) reset_state<kUnrolledReset>(s);
+  }
   return reward;
 }
 

@@ -1,7 +1,7 @@
 // Policy-collection kernels of the flagship full-game env, for Hopper
 // (sm_90a): one env step with the next step's policy inputs (K3a), the
-// policy inputs of a state (K3b), and the categorical sampler between the
-// policy and the step.
+// policy inputs of a state (K3b), the categorical sampler between the
+// policy and the step, and the engine's step without reset (env_step_kernel).
 //
 // Replaces:
 // * K3a: balatro_gym_tpu/ops/fused_policy_rollout.py:174 _kernel_step, one
@@ -13,6 +13,9 @@
 // jax.random.categorical to XLA. Written in torch it is some two hundred
 // elementwise launches over a [60, B] block of int64 words a step, more
 // than K3a and the policy together, so it is a kernel here.
+// env_step_kernel replaces none either: it is the engine's own step
+// (balatro_gym_tpu/engine/full_env.py step, XLA there), K3a's step without
+// its autoreset, for engine.full_env.step.
 //
 // What bounds them on this card. K3a moves memory: it reads the 2,136 B
 // packed state of an env and writes it back, with 756 B of observation, 60 B
@@ -49,6 +52,15 @@
 //   form), its 64 words in registers: a launch lasts as long as its slowest
 //   warp, and on an H100 any warp with a resetting env paid ~100 us for the
 //   looped sort.
+//
+// env_step_kernel has K3a's launch shape and State slots and runs
+// step<true, false>: the step without the reset, so a done env keeps its
+// final state and the engine's own reset (a permutation shuffle, not this
+// file's sort) replaces it. It writes the packed state, reward and done, and
+// no observation or mask: for a done env they would be those of the state
+// the engine's reset replaces. Its traffic is K3a's less the observation and
+// mask, 4.3 KB an env; its 28,416 B of dynamic shared memory a block are
+// under the 48 KB that needs no cudaFuncSetAttribute.
 //
 // K3b, kObserveGroups threads an env. One thread an env in 128-thread
 // blocks left 68 of the 132 SMs idle at 8192 envs, and each thread read all
@@ -118,6 +130,8 @@ constexpr int kObs = 189, kActions = 60;
 // K3a's launch shape (see above).
 constexpr int kStepBlock = 32;
 constexpr size_t kStepSmem = kStepBlock * sizeof(State);
+static_assert(kStepSmem <= 48 * 1024,
+              "env_step_kernel launches without raising its shared-memory limit");
 // K3b's: kObserveJobs load jobs of an env (see observe_load) shared by its
 // kObserveGroups threads.
 constexpr int kObserveEnvs = 32, kObserveGroups = 32, kObserveJobs = kHand + 6;
@@ -319,6 +333,25 @@ policy_step_kernel(const int* __restrict__ cards_in, const int* __restrict__ int
   write_mask(s, mask, e, B);
 }
 
+// The engine's step: K3a without the autoreset, the observation or the mask.
+__global__ void __launch_bounds__(kStepBlock)
+env_step_kernel(const int* __restrict__ cards_in, const int* __restrict__ ints_in,
+                const uint32_t* __restrict__ rng_in, const int* __restrict__ actions,
+                const float* __restrict__ ft, int* __restrict__ cards_out,
+                int* __restrict__ ints_out, uint32_t* __restrict__ rng_out,
+                float* __restrict__ reward_out, uint8_t* __restrict__ done_out, int n_envs) {
+  const int e = blockIdx.x * kStepBlock + threadIdx.x;
+  if (e >= n_envs) return;
+  const size_t B = (size_t)n_envs;
+  State& s = reinterpret_cast<State*>(k3a_slots)[threadIdx.x];
+  load_state(s, cards_in, ints_in, rng_in, e, B);
+  bool done = false;
+  const float reward = step<true, false>(s, actions[e], ft, done);
+  store_state(s, cards_out, ints_out, rng_out, e, B);
+  reward_out[e] = reward;
+  done_out[e] = done ? 1 : 0;
+}
+
 // The sampler's shared memory: the logits and the Gumbel noise of action a
 // of lane l at [a * kPitch + l], and each thread's partials.
 struct SampleSmem {
@@ -498,6 +531,21 @@ extern "C" int policy_step_launch(const int* cards_in, const int* ints_in,
   return (int)cudaGetLastError();
 }
 
+// The engine's step: one fed step without autoreset, then the packed state,
+// reward [n_envs] f32 and done [n_envs] u8 (arguments as policy_step_launch's).
+extern "C" int env_step_launch(const int* cards_in, const int* ints_in,
+                               const unsigned int* rng_in, const int* actions,
+                               const float* ftab, int* cards_out, int* ints_out,
+                               unsigned int* rng_out, float* reward, unsigned char* done,
+                               int n_envs, void* stream) {
+  if (n_envs <= 0) return (int)cudaSuccess;
+  env_step_kernel<<<(n_envs + kStepBlock - 1) / kStepBlock, kStepBlock, kStepSmem,
+                    (cudaStream_t)stream>>>(cards_in, ints_in, rng_in, actions, ftab,
+                                            cards_out, ints_out, rng_out, reward, done,
+                                            n_envs);
+  return (int)cudaGetLastError();
+}
+
 // The sampler: logits [n_envs, 60] f32 with element strides (s_env, s_act)
 // -> action [n_envs] i32, log_prob [n_envs] f32; (k0, k1) is the step's key.
 extern "C" int policy_sample_launch(const float* logits, long long s_env, long long s_act,
@@ -513,6 +561,9 @@ extern "C" int policy_sample_launch(const float* logits, long long s_env, long l
 // Each kernel's launch shape (kernel_info's out[4]).
 extern "C" int policy_step_info(int* out) {
   return kernel_info(policy_step_kernel, kStepBlock, kStepSmem, out);
+}
+extern "C" int env_step_info(int* out) {
+  return kernel_info(env_step_kernel, kStepBlock, kStepSmem, out);
 }
 extern "C" int policy_observe_info(int* out) {
   return kernel_info(policy_observe_kernel, kObserveBlock, 0, out);

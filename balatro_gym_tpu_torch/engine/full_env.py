@@ -1,15 +1,23 @@
-"""The flagship full-game environment's state, reset and reward tables.
+"""The flagship full-game environment: state, reset, step and observations.
 
-Port of part of ``balatro_gym_tpu/engine/full_env.py``: the state
-(:class:`FullEnvState`), :func:`reset` and the reward-shaping tables that
-the fused full-env rollout (``ops/fused_full_rollout.py``) reads. A state
-holds every env of a batch: ``[B]`` or ``[B, n]`` tensors, int32 and bool
-at the production widths (the x64-off configuration of the reference),
-with the Threefry key and the stream counters as int64 tensors of 32-bit
-words (``ops/kernel_rng.py``). :func:`observe_vector` and
-:func:`action_mask` are the batched policy inputs, computed as the
-policy-collection path computes them (pack -> rows); the engine's own
-``step`` is not ported yet.
+Port of ``balatro_gym_tpu/engine/full_env.py``. A state
+(:class:`FullEnvState`) holds every env of a batch: ``[B]`` or ``[B, n]``
+tensors, int32 and bool at the production widths (the x64-off
+configuration of the reference), with the Threefry key and the stream
+counters as int64 tensors of 32-bit words (``ops/kernel_rng.py``). Every
+function runs on the device its state lies on.
+
+* :func:`reset` starts episodes from keys; :func:`step` is the engine's
+  step of every env, :func:`step_autoreset` the same with done envs
+  replaced by :func:`reset` of ``fold_in(key, step_count)``.
+* The step's arithmetic is the fused full-env rollout's
+  (``ops/fused_full_rollout.py``) without its autoreset: :func:`step`
+  packs the state into rows, runs ``ops.fused_policy_rollout.
+  env_step_fused`` (``env_step_kernel`` on a card, the plain rows with the
+  state on the CPU) and unpacks.
+* :func:`observe_vector` and :func:`action_mask` are the batched policy
+  inputs: K3b (``observe_fused``) on a card, its plain rows on the CPU.
+  :func:`observe` is the reference's Dict observation, batched, in torch.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ from balatro_gym_tpu_torch.core import cards as C
 from balatro_gym_tpu_torch.core import rng as R
 from balatro_gym_tpu_torch.core.constants import NUM_HAND_TYPES, HandType, Phase
 from balatro_gym_tpu_torch.core.device import const
+from balatro_gym_tpu_torch.engine import consumable_logic as CL
 from balatro_gym_tpu_torch.engine import shop_logic as SL
 from balatro_gym_tpu_torch.ops import kernel_rng as KR
 
@@ -156,16 +165,104 @@ def reset(keys) -> FullEnvState:
     )
 
 
+def where_envs(p, a, b):
+    """Per env, ``a`` where ``p`` (``[B]`` bool), else ``b``: two tensors
+    with the env axis first, or two dataclasses of such tensors or of such
+    dataclasses (a :class:`FullEnvState`, a shaped state around one)."""
+    if torch.is_tensor(a):
+        return torch.where(p.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+    return type(a)(**{f.name: where_envs(p, getattr(a, f.name), getattr(b, f.name))
+                      for f in dataclasses.fields(a)})
+
+
+def autoreset(state: FullEnvState, done) -> FullEnvState:
+    """``state`` with each ``done`` env replaced by ``reset(fold_in(key,
+    step_count))``."""
+    k1, k2 = KR.fold_in(state.key[:, 0], state.key[:, 1], state.step_count.to(torch.int64))
+    return where_envs(done, reset(torch.stack([k1, k2], -1)), state)
+
+
+# The kernels' modules import this one, so functions import them when called.
+def _policy_inputs(state: FullEnvState):
+    from balatro_gym_tpu_torch.ops import fused_full_rollout as FF
+    from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
+    return FP.observe_fused(FF.pack_full_state(state), device=state.ante.device)
+
+
 def observe_vector(state: FullEnvState) -> torch.Tensor:
     """``[B, 189]`` float32: the reference's ``observe_vector`` of every env
     (hand rank and suit one-hots, jokers, levels, shop, phase, scalars)."""
-    # The rows live with the kernels' plain versions, which import this module.
-    from balatro_gym_tpu_torch.ops import fused_full_rollout as FF
-    from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
-    return FP._obs_rows(FF._load(FF.pack_full_state(state))).T.contiguous()
+    return _policy_inputs(state)[0]
 
 
 def action_mask(state: FullEnvState) -> torch.Tensor:
     """``[B, 60]`` bool: the reference's ``action_mask`` of every env."""
+    return _policy_inputs(state)[1]
+
+
+def step(state: FullEnvState, actions):
+    """One engine step of every env (``actions``: ``[B]`` ids): (state,
+    reward ``[B]`` float32, done ``[B]`` bool). A done env keeps its final
+    state, done set; an illegal action costs -1 and changes nothing but the
+    step count; an env already over (done, ante past 100 or a career past
+    1e9) gets 0."""
     from balatro_gym_tpu_torch.ops import fused_full_rollout as FF
-    return FF.legal_mask(state)
+    from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
+    packed, reward, done = FP.env_step_fused(FF.pack_full_state(state), actions,
+                                             device=state.ante.device)
+    return FF.unpack_full_state(packed), reward, done
+
+
+def step_autoreset(state: FullEnvState, actions):
+    """:func:`step`, with each done env replaced by ``reset(fold_in(key,
+    step_count))`` of its post-step state."""
+    st, reward, done = step(state, actions)
+    return autoreset(st, done), reward, done
+
+
+def observe(state: FullEnvState) -> dict:
+    """The reference's Dict observation of every env: its keys, each a
+    ``[B]`` or ``[B, n]`` int32 or float32 tensor on the state's device (the
+    Gym shell casts them to the reference's numpy dtypes)."""
+    i32, dev = torch.int32, state.ante.device
+    hidx = state.hand_idx[:, :SEL]
+    present = (torch.arange(SEL, device=dev) < state.hand_n[:, None]) & (hidx >= 0)
+    slot = hidx.clamp(0, MAX_DECK - 1).long()
+    rank, suit = state.card_rank.gather(1, slot), state.card_suit.gather(1, slot)
+    in_shop = (state.phase == int(Phase.SHOP))[:, None]
+    progress = (state.round_chips_scored.to(torch.float32)
+                / state.chips_needed.clamp(min=1).to(torch.float32)).clamp(max=2.0)
+    return {
+        "hand": torch.where(present, (rank - 2) * 4 + suit, -1),
+        "hand_size": state.hand_n,
+        "deck_size": state.card_alive.sum(1, dtype=i32),
+        "selected_cards": state.selected.to(i32),
+        "chips_scored": state.chips_scored,
+        "round_chips_scored": state.round_chips_scored,
+        "progress_ratio": progress,
+        "mult": torch.ones_like(state.ante),
+        "chips_needed": state.chips_needed,
+        "money": state.money,
+        "ante": state.ante,
+        "round": state.round,
+        "hands_left": state.hands_left,
+        "discards_left": state.discards_left,
+        "joker_count": state.joker_n,
+        "joker_ids": torch.cat([state.jokers, torch.zeros_like(state.jokers)], 1),
+        "joker_slots": state.joker_slots,
+        "consumable_count": state.cons_n,
+        # enum-name entries (+100) observe as id 0, as in the reference
+        "consumables": torch.where(state.cons >= CL.ENUMNAME_OFFSET, 0, state.cons),
+        "consumable_slots": state.cons_slots,
+        "shop_items": torch.where(in_shop, state.shop_type, 0),
+        "shop_costs": torch.where(in_shop, state.shop_cost, 0),
+        "shop_rerolls": state.shop_reroll_cost,
+        "hand_levels": state.hand_levels,
+        "phase": state.phase,
+        "action_mask": action_mask(state).to(i32),
+        "hands_played": state.hands_played_total,
+        "best_hand_this_ante": state.best_hand_this_ante,
+        "boss_blind_active": state.boss_active.to(i32),
+        "boss_blind_type": torch.where(state.boss_active, state.boss_id, 0),
+        "face_down_cards": state.face_down.to(i32),
+    }

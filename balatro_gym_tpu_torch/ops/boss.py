@@ -1,10 +1,10 @@
-"""Boss blind ids, as the flagship env reads them.
+"""Boss blind ids and names, as the flagship env reads them.
 
-Port of the ids of ``balatro_gym_tpu/ops/boss.py`` (the reference enum's
-values 1..28). Every boss pays $5 when beaten. The boss functions of the
-engine (selection, play restrictions, scoring ratios, on-hand-drawn
-effects) are inlined in ``ops/fused_full_rollout.py``; the engine's own
-copies are ported with the engine's ``step``.
+Port of the ids and names of ``balatro_gym_tpu/ops/boss.py`` (the
+reference enum's values 1..28). Every boss pays $5 when beaten. The boss
+functions (selection, play restrictions, scoring ratios, on-hand-drawn
+effects) are inlined in the step of ``ops/fused_full_rollout.py``, which
+the engine's ``step`` runs too.
 """
 from __future__ import annotations
 
@@ -15,3 +15,12 @@ N_BOSS = 29  # ids 1..28; 0 unused
  ARM, VIOLET, VERDANT, AMBER, CRIMSON, CERULEAN) = range(1, 29)
 
 BOSS_MONEY_REWARD = 5
+
+BOSS_NAMES = (
+    "", "The Hook", "The Wall", "The Wheel", "The House", "The Mark",
+    "The Fish", "The Psychic", "The Goad", "The Water", "The Window",
+    "The Manacle", "The Eye", "The Mouth", "The Plant", "The Serpent",
+    "The Pillar", "The Needle", "The Head", "The Club", "The Tooth",
+    "The Flint", "The Oxide", "The Arm", "The Violet", "The Verdant",
+    "The Amber", "The Crimson", "The Cerulean",
+)

@@ -1127,9 +1127,10 @@ def _reset_rows(s):
     return out
 
 
-def _step(s, a):
+def _step(s, a, autoreset=True):
     """One ``step_autoreset`` of every env, branch-free. Returns (state,
-    reward, done)."""
+    reward, done). With ``autoreset=False`` it is the engine's ``step``: a
+    done env keeps its final state (done set, step count advanced)."""
     a = a.to(_I32)
     over = (s["ante"] > 100) | (s["career"] > 1_000_000_000) | s["done"]
     in_range = (a >= 0) & (a < Action.ACTION_SPACE_SIZE)
@@ -1253,7 +1254,8 @@ def _step(s, a):
     done = over | (term & legal)
     nxt["done"] = done
     nxt["sc"] = s["sc"] + 1
-    nxt = _merge(done, _reset_rows(nxt), nxt)
+    if autoreset:
+        nxt = _merge(done, _reset_rows(nxt), nxt)
     return nxt, reward, done
 
 

@@ -13,12 +13,16 @@ step), and the step also emits the next step's policy inputs.
   post-step state. ``observe_fused`` launches K3b: the observation and mask
   of a state, without stepping (a collection's step 0). ``sample_fused``
   launches the sampler: ``jax.random.categorical`` with the log-probability
-  of the drawn action. Each counts its launches in ``.launches``.
-* ``step_rows_reference``, ``observe_rows_reference`` and ``sample`` are
-  their plain versions, on any device. The step and the mask are the
-  whole-rollout module's (``ops/fused_full_rollout.py``); the observation
-  rows ``_obs_rows`` mirror the reference's ``_obs_rows`` (the engine's
-  ``observe_vector``) op for op.
+  of the drawn action. ``env_step_fused`` launches ``env_step_kernel``:
+  K3a's step without its autoreset, observation or mask, the engine's own
+  ``step`` (``engine.full_env.step``), which the reference leaves to XLA.
+  Each counts its launches in ``.launches``.
+* ``step_rows_reference``, ``observe_rows_reference``, ``sample`` and
+  ``env_step_rows_reference`` are their plain versions, on any device. The
+  step and the mask are the whole-rollout module's
+  (``ops/fused_full_rollout.py``); the observation rows ``_obs_rows``
+  mirror the reference's ``_obs_rows`` (the engine's ``observe_vector``)
+  op for op.
 * ``collect_policy_fused`` runs a collection: K3b once, then ``n_steps`` x
   (policy forward -> ``sample_fused`` -> ``step_fused``), eagerly;
   ``collect_policy_reference`` runs the same loop over the plain versions.
@@ -117,6 +121,14 @@ def step_rows_reference(packed, actions):
     return FF._store(s), reward, done, _obs_rows(s).T, FF._legal_rows(s).T
 
 
+def env_step_rows_reference(packed, actions):
+    """One fed step of every env of a packed state without autoreset, on
+    its device: (packed state, reward ``[B]`` float32, done ``[B]`` bool).
+    A done env keeps its final state."""
+    s, reward, done = FF._step(FF._load(packed), actions, autoreset=False)
+    return FF._store(s), reward, done
+
+
 def sample(step_key, logits):
     """``jax.random.categorical(step_key, logits.T, axis=0)`` and the
     log-softmax at the drawn action: (action ``[B]`` int32, log_prob
@@ -149,12 +161,14 @@ def _kernel_lib():
     lib = cuda_build.load("fused_policy_rollout.cu")
     lib.policy_observe_launch.argtypes = [_P] * 5 + [_INT, _P]
     lib.policy_step_launch.argtypes = [_P] * 12 + [_INT, _P]
+    lib.env_step_launch.argtypes = [_P] * 10 + [_INT, _P]
     lib.policy_sample_launch.argtypes = [_P, _I64, _I64, _INT, _UINT, _UINT, _P, _P, _P]
-    infos = (lib.policy_step_info, lib.policy_observe_info, lib.policy_sample_info)
+    infos = (lib.policy_step_info, lib.policy_observe_info, lib.policy_sample_info,
+             lib.env_step_info)
     for fn in infos:
         fn.argtypes = [_P]
     for fn in (lib.policy_observe_launch, lib.policy_step_launch, lib.policy_sample_launch,
-               *infos):
+               lib.env_step_launch, *infos):
         fn.restype = ctypes.c_int
     return lib
 
@@ -164,25 +178,30 @@ def _kernel_shape(name):
     card: {"block": threads a block, "shared_bytes": shared memory a block,
     "registers": a thread, "stack_bytes": local memory a thread}."""
     out = (ctypes.c_int * 4)()
-    err = getattr(_kernel_lib(), f"policy_{name}_info")(out)
+    err = getattr(_kernel_lib(), f"{name}_info")(out)
     if err != 0:
-        raise RuntimeError(f"policy_{name}_info failed: cudaError_t {err}")
+        raise RuntimeError(f"{name}_info failed: cudaError_t {err}")
     return dict(zip(("block", "shared_bytes", "registers", "stack_bytes"), out))
 
 
 def step_kernel_shape():
     """K3a's launch shape (see ``_kernel_shape``)."""
-    return _kernel_shape("step")
+    return _kernel_shape("policy_step")
+
+
+def env_step_kernel_shape():
+    """``env_step_kernel``'s launch shape (see ``_kernel_shape``)."""
+    return _kernel_shape("env_step")
 
 
 def observe_kernel_shape():
     """K3b's launch shape (see ``_kernel_shape``)."""
-    return _kernel_shape("observe")
+    return _kernel_shape("policy_observe")
 
 
 def sample_kernel_shape():
     """The sampler's launch shape (see ``_kernel_shape``)."""
-    return _kernel_shape("sample")
+    return _kernel_shape("policy_sample")
 
 
 def _launch(fn, name, dev, *args):
@@ -257,6 +276,32 @@ def step_fused(packed, actions, *, device=None):
 
 
 step_fused.launches = 0
+
+
+def env_step_fused(packed, actions, *, device=None):
+    """One fed step of every env without autoreset (``actions`` ``[B]``
+    ids): ``env_step_kernel`` on a card, the plain version with
+    ``device="cpu"``. Returns what :func:`env_step_rows_reference` returns."""
+    packed, dev = _placed(packed, (actions,), device)
+    actions = torch.as_tensor(actions).to(device=dev, dtype=_I32).contiguous()
+    if dev.type == "cpu":
+        return env_step_rows_reference(packed, actions)
+    _on_card(dev, "env_step_fused")
+    n = _check_packed(packed, dev)
+    check_arg(actions, "actions", _I32, (n,), dev)
+    out = {k: torch.empty_like(v) for k, v in packed.items()}
+    reward = torch.empty(n, dtype=_F32, device=dev)
+    done = torch.empty(n, dtype=torch.bool, device=dev)
+    _launch(_kernel_lib().env_step_launch, "env_step", dev,
+            packed["cards"].data_ptr(), packed["ints"].data_ptr(), packed["rng"].data_ptr(),
+            actions.data_ptr(), FF.float_tables(dev).data_ptr(), out["cards"].data_ptr(),
+            out["ints"].data_ptr(), out["rng"].data_ptr(), reward.data_ptr(), done.data_ptr(),
+            n)
+    env_step_fused.launches += 1
+    return out, reward, done
+
+
+env_step_fused.launches = 0
 
 
 def sample_fused(step_key, logits, *, device=None):

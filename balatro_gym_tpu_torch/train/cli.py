@@ -4,13 +4,17 @@ Port of ``balatro_gym_tpu/train/cli.py`` for the PPO learner:
 
     python -m balatro_gym_tpu_torch.train.cli --env sim --updates 50
     python -m balatro_gym_tpu_torch.train.cli --env full --fused-rollout --bf16 --env-shuffle
+    python -m balatro_gym_tpu_torch.train.cli --env full --updates 20
     python -m balatro_gym_tpu_torch.train.cli --env sim --updates 2 --device cpu
 
 It runs on the card unless given ``--device cpu`` (the fused collection's
 plain versions then run on the CPU), prints one JSON line of metrics every
 ``--log-every`` updates and writes the reference's summary keys to
-``--summary``. The reference's options that the port does not carry yet
-exit non-zero and name the ROADMAP item that ports them. As in the
+``--summary``. ``--env full`` without ``--fused-rollout`` trains over the
+generic rollout (the engine's step, ``env_step_kernel``, and K3b for the
+observation and mask). The reference's options that the port does not
+carry yet (A2C and DQN, ``--distributed``, ``--checkpoint-dir`` and
+``--resume``) exit non-zero and name the ROADMAP item that ports them. As in the
 reference, ``--wandb`` logs each metrics line to a W&B run where ``wandb``
 imports and starts, and trains without logging where it does not; and
 ``--checkpoint-every`` saves only beside ``--checkpoint-dir`` (which is not
@@ -35,10 +39,6 @@ _NOT_PORTED = {
                          "checkpointing is not ported (ROADMAP queue 1 item 11)"),
     "--resume": (lambda a: bool(a.resume),
                  "checkpointing is not ported (ROADMAP queue 1 item 11)"),
-    "--env full without --fused-rollout": (
-        lambda a: a.env == "full" and not a.fused_rollout,
-        "the full env's step_autoreset is not ported (ROADMAP queue 1 item 4): "
-        "pass --fused-rollout"),
 }
 
 

@@ -27,10 +27,10 @@ only) a step is the collection of ``ops/fused_policy_rollout.py``: the
 policy forward, the sampler kernel and the env step kernel K3a, which also
 writes the next step's observation and mask; the env state stays packed
 between updates. Otherwise the hooks' ``observe``, ``action_mask`` and
-``step_autoreset`` run in torch and ``jax.random.categorical``'s draw is
-written out (:func:`categorical`); that is the sim env's path. The flagship
-env's own ``step_autoreset`` is not ported (ROADMAP queue 1 item 4), so the
-full env trains only with ``fused_rollout``.
+``step_autoreset`` run and ``jax.random.categorical``'s draw is written out
+(:func:`categorical`): the sim env's path, and the flagship env's, whose
+step is ``env_step_kernel`` and whose observation and mask are K3b on a
+card.
 
 Neither rollout synchronises with the card inside its step loop: step keys
 are split on the host before it, and every per-step value stays on the
@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from balatro_gym_tpu_torch.core.device import run_device
+from balatro_gym_tpu_torch.engine.full_env import where_envs
 from balatro_gym_tpu_torch.ops import kernel_rng as KR
 from balatro_gym_tpu_torch.train.networks import (
     ActorCritic, StructuredActorCritic, load_flax_params)
@@ -64,11 +65,14 @@ class EnvHooks(NamedTuple):
     """Batched env functions: every state holds a batch of envs."""
 
     reset: Callable[..., Any]           # keys [B, 2] -> state
-    step_autoreset: Callable[..., Any]  # (state, action [B]) -> (state, reward, done); None: not ported
+    step_autoreset: Callable[..., Any]  # (state, action [B]) -> (state, reward, done)
     observe: Callable[..., Any]         # state -> [B, D] float32
     action_mask: Callable[..., Any]     # state -> [B, A] bool
     n_actions: int
     obs_dim: int
+    # Optional step without autoreset: done envs keep their final state.
+    # evaluate_policy prefers it, so terminal-step ante advances count.
+    step: Any = None
     # The fused collection's (observe, sample, step) on packed rows; None:
     # the kernels' wrappers (observe_fused, sample_fused, step_fused)
     fused_ops: Any = None
@@ -275,11 +279,6 @@ def _check(hooks: EnvHooks, cfg: PPOConfig):
         from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
         if (hooks.obs_dim, hooks.n_actions) != (FP.OBS_DIM, FP.N_ACTIONS):
             raise ValueError("fused_rollout supports the flagship full env only")
-    elif hooks.step_autoreset is None:
-        raise NotImplementedError(
-            "this env's step_autoreset is not ported (the flagship env's "
-            "full_env.step_autoreset: ROADMAP queue 1 item 4); train it with "
-            "fused_rollout=True")
 
 
 def _keys(key, n, dev):
@@ -288,13 +287,11 @@ def _keys(key, n, dev):
 
 
 def _where_lanes(lanes, a, b):
-    """Per-env select of two batched env states (dataclass of ``[B, ...]``
-    tensors, or packed rows with the env axis last)."""
+    """Per-env select of two batched env states: packed rows (the env axis
+    last) or what ``full_env.where_envs`` takes."""
     if isinstance(a, dict):
         return {k: torch.where(lanes, a[k], b[k]) for k in a}
-    return type(a)(**{f.name: torch.where(
-        lanes.reshape((-1,) + (1,) * (getattr(a, f.name).dim() - 1)),
-        getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a)})
+    return where_envs(lanes, a, b)
 
 
 def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None):
@@ -512,19 +509,18 @@ def sim_env_hooks() -> EnvHooks:
     """The single-blind SimEnv (``engine/sim_env.py``)."""
     from balatro_gym_tpu_torch.engine import sim_env
     return EnvHooks(reset=sim_env.reset, step_autoreset=sim_env.step_autoreset,
-                    observe=sim_env.observe,
+                    step=sim_env.step_action, observe=sim_env.observe,
                     action_mask=sim_env.action_mask, n_actions=10, obs_dim=sim_env.OBS_DIM)
 
 
 def full_env_hooks() -> EnvHooks:
-    """The flagship Discrete(60) env. Its ``step_autoreset`` and ``step``
-    are not ported (ROADMAP queue 1 item 4): it trains with
-    ``fused_rollout=True``."""
+    """The flagship Discrete(60) env."""
     from balatro_gym_tpu_torch.engine import full_env
     from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
-    return EnvHooks(reset=full_env.reset, step_autoreset=None,
-                    observe=full_env.observe_vector, action_mask=full_env.action_mask,
-                    n_actions=FP.N_ACTIONS, obs_dim=FP.OBS_DIM)
+    return EnvHooks(reset=full_env.reset, step_autoreset=full_env.step_autoreset,
+                    step=full_env.step, observe=full_env.observe_vector,
+                    action_mask=full_env.action_mask, n_actions=FP.N_ACTIONS,
+                    obs_dim=FP.OBS_DIM)
 
 
 def _flax_leaves(net, tree):
@@ -547,19 +543,23 @@ def load_reference_state(hooks: EnvHooks, cfg: PPOConfig, ref: dict, *, device=N
     step count), ``obs_stats`` and ``ret_stats`` (each ``(mean, var,
     count)``), ``ret_carry``, ``key`` (``jax.random.key_data``: two
     words), ``update_idx`` and ``env_states``: the packed rows ``{"cards",
-    "ints", "rng"}`` of ``pack_full_state`` for the fused path, else the
+    "ints", "rng"}`` of ``pack_full_state`` for the flagship env, else the
     SimEnvState's fields."""
+    from balatro_gym_tpu_torch.ops import fused_full_rollout as FF
+    from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
     _check(hooks, cfg)
     dev = run_device((), device)
     net = load_flax_params(_make_net(hooks, cfg, None), ref["params"]).to(dev)
     mu, nu = (_flax_leaves(net, ref[k]) for k in ("mu", "nu"))
-    if cfg.fused_rollout:
+    if hooks.obs_dim == FP.OBS_DIM:
         env = ref["env_states"]
         env_states = {
             "cards": torch.as_tensor(np.asarray(env["cards"], np.int32), device=dev),
             "ints": torch.as_tensor(np.asarray(env["ints"], np.int32), device=dev),
             "rng": torch.as_tensor(np.asarray(env["rng"]).astype(np.uint32).view(np.int32),
                                    device=dev)}
+        if not cfg.fused_rollout:
+            env_states = FF.unpack_full_state(env_states)
     else:
         from balatro_gym_tpu_torch.engine import sim_env
         env_states = sim_env.state_from_numpy(ref["env_states"], device=dev)

@@ -15,8 +15,10 @@ the card in both. The policy collection
 sampler) runs at bench.py's ``policy_collect_steps_per_sec`` shape, 8192
 envs x 256 steps with ``ActorCritic(256, 256)``; the PPO trainer
 (``train.ppo.make_ppo``) runs the ``fast_decay`` recipe, 8192 envs x 128
-steps an update; the hand histograms (K5) and the ALU ceiling probe (K6)
-run through their own entry points. Phases, each printed on its own line;
+steps an update, over the fused collection and over the generic rollout
+(the engine's step kernel ``env_step_kernel`` and K3b); evaluation and the
+Gym shell run on the engine's step; the hand histograms (K5) and the ALU
+ceiling probe (K6) run through their own entry points. Phases, each printed on its own line;
 any failure raises and the run exits non-zero:
 
 1. device: the card, its power limit, nvcc and torch;
@@ -122,11 +124,38 @@ any failure raises and the run exits non-zero:
     update time; the host's enqueue of one K3a call (``step_fused`` on the
     trainer's 8192 envs, 100 back-to-back calls with no sync) and the time
     of a fixed Python loop, which say how fast the host that sets the
-    update's time ran in this run.
+    update's time ran in this run;
+18. full step: the engine's own ``engine.full_env.step`` (pack,
+    ``env_step_kernel``, unpack) at 8192 envs x 32 steps of the battery
+    (every action class, an illegal action in every 11th env, envs on their
+    last hand, past the score cap and already done) against the plain
+    no-reset step on the card, bit for bit (packed state, reward, done);
+    ``step_autoreset`` against the plain step plus the engine's reset;
+    ``observe_vector`` and ``action_mask`` (K3b) against their plain rows;
+    the kernel's card time behind a card sleep (median of 5 rounds of 20
+    calls), also with no env ending and with every env ending, K3a's on the
+    same inputs, the ``step`` and ``step_autoreset`` calls' times and the
+    plain step's; its launch shape and ptxas lines, and K2's and K3a's ptxas
+    lines beside those recorded before the step kernel joined their step
+    (``RECORDED_PTXAS``; printed, not held: a redesign changes them);
+19. generic PPO: ``make_ppo(full_env_hooks())`` with the ``fast_decay``
+    recipe but ``fused_rollout=False``, 8192 x 128, ``ActorCritic(256,
+    256)``, 3 updates, the launch counters reset before and read after
+    (``env_step_fused`` 128 an update; K3b 2 a step and 2 for the last
+    value; K3a and the sampler none); every action legal, metrics finite;
+    the median update by CUDA events, its stages, and the card's idle share
+    (profiler card time against the unprofiled update);
+20. evaluate: a greedy anti-loop ``evaluate_policy`` of phase 19's policy,
+    1024 episodes x 256 steps on the card; its statistics and wall time;
+21. gym shell: ``envs.BalatroGymEnv`` on the card for 100 random legal
+    steps against the same shell on the CPU (observations with their numpy
+    dtypes, rewards, dones), then ``BalatroEnvValidator``'s determinism and
+    action-mask checks on the card.
 
 Float32 matmuls run in full float32 (``allow_tf32`` stays False). The last
-three lines are the trainer's JSON record, the kernels' JSON record (each
-kernel's bound under both INT32 rates) and the result line.
+four lines are the trainer's JSON record, that of phases 19-21, the
+kernels' JSON record (each kernel's bound under both INT32 rates) and the
+result line.
 Imports torch and the port only; the machine with the card has no JAX.
 """
 from __future__ import annotations
@@ -143,7 +172,9 @@ import numpy as np
 import torch
 
 from balatro_gym_tpu_torch.core.constants import Phase
+from balatro_gym_tpu_torch.engine import full_env as FE
 from balatro_gym_tpu_torch.engine import sim_env
+from balatro_gym_tpu_torch.envs import BalatroEnvValidator, BalatroGymEnv
 from balatro_gym_tpu_torch.ops import alu_ceiling as AC
 from balatro_gym_tpu_torch.ops import cuda_build
 from balatro_gym_tpu_torch.ops import fused_full_battery as BAT
@@ -152,6 +183,7 @@ from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
 from balatro_gym_tpu_torch.ops import fused_rollout as FR
 from balatro_gym_tpu_torch.ops import hand_histograms as HH
 from balatro_gym_tpu_torch.ops import kernel_rng as KR
+from balatro_gym_tpu_torch.train import evaluate as EV
 from balatro_gym_tpu_torch.train import ppo as TP
 from balatro_gym_tpu_torch.train.networks import ActorCritic
 from balatro_gym_tpu_torch.train.normalize import init_stats, normalize
@@ -184,6 +216,24 @@ TRAIN_UPDATES = 5
 PARITY = dict(n_envs=1024, rollout_len=8, epochs=2, minibatches=2, fused_rollout=True,
               total_updates=5, ent_coef_final=5e-4, lr_final=5e-5)
 PARAM_ATOL, METRIC_RTOL = 1e-6, 1e-5    # the CPU tests' tolerances (tests/test_torch_ppo.py)
+STEP_ENVS, STEP_CHECK_STEPS = 8192, 32  # the engine's step against plain, the fast_decay width
+# The fast_decay recipe over the generic rollout (the engine's step, K3b), 3 updates
+GENERIC = {**TRAIN, "fused_rollout": False, "total_updates": 3}
+GENERIC_UPDATES = 3
+EVAL_EPISODES, EVAL_STEPS = 1024, 256
+GYM_STEPS = 100
+# K2's and K3a's ptxas lines as phase 2 printed them before the engine's
+# step kernel joined their step (NVIDIA H100 80GB HBM3, CUDA 12.9). Phase 18
+# prints today's beside them and says whether they are equal; it does not
+# hold them, since a redesign of K2 or K3a or another toolkit changes them.
+RECORDED_PTXAS = {
+    "fused_full_rollout_kernel": [
+        "1488 bytes stack frame, 288 bytes spill stores, 272 bytes spill loads",
+        "Used 64 registers, used 0 barriers, 1488 bytes cumulative stack size"],
+    "policy_step_kernel": [
+        "160 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "Used 94 registers, used 0 barriers, 160 bytes cumulative stack size"],
+}
 
 # The least time the card could take: NVIDIA's data-sheet HBM rate,
 # 3.35 TB/s; INT32 at 132 SMs x 64 INT32 lanes x 1.98 GHz (H100 SXM, Hopper
@@ -1110,6 +1160,271 @@ def phase_train_timing(smi, ts, update_fn):
             "policy_kernels_us": in_trainer,
             "host_step_fused_us": step_us, "host_loop_ms": loop_ms}
 
+def card_ms_behind_sleep(fn, calls=20, rounds=5):
+    """Median and all rounds of ``fn``'s card time per call: ``calls``
+    back-to-back calls between two CUDA events, queued behind a card sleep
+    long enough for the host to enqueue them all, so the host's time to
+    call is not counted."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(40_000_000)          # ~20 ms at 1.98 GHz
+        e0.record()
+        for _ in range(calls):
+            fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) / calls)
+    return statistics.median(times), times
+
+
+def ptxas_lines(source, kernel):
+    """This run's ptxas lines of ``kernel`` (phase 2's build)."""
+    return [ln.split(": ", 1)[1] for ln in ptxas_summary(cuda_build.build_log[source]["ptxas"])
+            if ln.startswith(kernel + ":")]
+
+
+def phase_env_step(smi):
+    """The engine's step (env_step_kernel) and step_autoreset against their
+    plain versions along a fed battery; the policy inputs against theirs."""
+    n = STEP_ENVS
+    rng = np.random.default_rng(18)
+    st = BAT.surgery(FF.rollout_full_rows_reference(4, n, 4, device=DEV)["state"], rng)
+    env = torch.arange(n, device=DEV)
+    st.hands_left = torch.where((env % 8 == 3) & (st.phase == 0), 1, st.hands_left)
+    st.chips_scored = torch.where(env % 64 == 5, 1_000_000_001, st.chips_scored)
+    st.done = st.done | (env % 64 == 37)
+    errs = {"reward": 0.0, "obs": 0.0}
+    counts = {"ended": 0, "illegal": 0, "autoresets": 0, "log1p_ulp": 0}
+    k0 = (FP.env_step_fused.launches, FP.observe_fused.launches)
+    script, mid = [], None
+    for t in range(STEP_CHECK_STEPS):
+        obs, mask = FE.observe_vector(st), FE.action_mask(st)
+        p_obs, p_mask = FP.observe_rows_reference(FF.pack_full_state(st))
+        assert torch.equal(mask, p_mask), f"step {t}: action_mask differs from its plain rows"
+        e, nd = obs_diff(obs, p_obs)
+        errs["obs"], counts["log1p_ulp"] = max(errs["obs"], e), counts["log1p_ulp"] + nd
+        a = BAT.sample_legal(mask.cpu().numpy(), rng)
+        for i in np.flatnonzero(np.arange(n) % 11 == t % 11):
+            illegal = np.flatnonzero(~mask[i].cpu().numpy())
+            a[i] = rng.choice(illegal)
+        script.append(a)
+        a = torch.as_tensor(a, device=DEV)
+        s1, r1, d1 = FE.step(st, a)
+        sp, rp, dp = FF._step(FF._load(FF.pack_full_state(st)), a, autoreset=False)
+        plain = FF._store(sp)
+        for k, v in FF.pack_full_state(s1).items():
+            if not torch.equal(v, plain[k]):
+                raise AssertionError(f"step {t}: env_step {k} differs in "
+                                     f"{int((v != plain[k]).sum())} entries")
+        assert torch.equal(d1, dp), f"step {t}: done differs"
+        errs["reward"] = max(errs["reward"], float((r1 - rp).abs().max()))
+        assert torch.equal(r1, rp), f"step {t}: reward differs by {errs['reward']}"
+        s2, r2, d2 = FE.step_autoreset(st, a)
+        final = FF.unpack_full_state(plain)
+        k1, k2 = KR.fold_in(final.key[:, 0], final.key[:, 1], final.step_count.to(torch.int64))
+        want = FE.where_envs(dp, FE.reset(torch.stack([k1, k2], -1)), final)
+        bad = FF.states_equal(s2, want)
+        assert not bad, f"step {t}: step_autoreset differs from plain step + reset in {bad}"
+        assert torch.equal(r2, rp) and torch.equal(d2, dp)
+        counts["ended"] += int(d1.sum())
+        counts["illegal"] += int((~mask.gather(1, a.long()[:, None])[:, 0]).sum())
+        if t == STEP_CHECK_STEPS // 2:
+            mid = (FF.pack_full_state(st), a)
+        st = s2
+    torch.cuda.synchronize()
+    launched = (FP.env_step_fused.launches - k0[0], FP.observe_fused.launches - k0[1])
+    assert launched == (2 * STEP_CHECK_STEPS, 2 * STEP_CHECK_STEPS), launched
+    cov = BAT.coverage(np.stack(script))
+    assert all(v > 0 for v in cov.values()), cov
+    assert counts["ended"] > 0 and counts["illegal"] > 0
+
+    packed, a = mid
+    calls = 20
+    k_ms, k_all = card_ms_behind_sleep(lambda: FP.env_step_fused(packed, a, device=DEV), calls)
+    state = FF.unpack_full_state(packed)
+    call_ms, call_all = cuda_ms(lambda: FE.step(state, a), calls=calls)
+    auto_ms, auto_all = cuda_ms(lambda: FE.step_autoreset(state, a), calls=calls)
+    p_ms, p_all = cuda_ms(lambda: FP.env_step_rows_reference(packed, a))
+    k3a_ms, _ = card_ms_behind_sleep(lambda: FP.step_fused(packed, a, device=DEV), calls)
+    no_reset, all_reset = BAT.reset_batches(packed)
+    ends_ms = {}
+    for what, (p, act), ends in (("no_reset", no_reset, False), ("all_end", all_reset, True)):
+        out = FP.env_step_fused(p, act, device=DEV)
+        want = FP.env_step_rows_reference(p, act)
+        assert all(torch.equal(out[0][k], want[0][k]) for k in p), what
+        assert torch.equal(out[1], want[1]) and bool((out[2] == ends).all()), what
+        ends_ms[what] = card_ms_behind_sleep(lambda: FP.env_step_fused(p, act, device=DEV),
+                                             calls)[0]
+    shape = FP.env_step_kernel_shape()
+    b = bound(n * (2 * PACKED_BYTES + 9), 0)
+    ptxas = {k: ptxas_lines(src, k) for k, src in (
+        ("fused_full_rollout_kernel", "fused_full_rollout.cu"),
+        ("policy_step_kernel", "fused_policy_rollout.cu"))}
+    env_ptxas = ptxas_lines("fused_policy_rollout.cu", "env_step_kernel")
+    same = {k: "equal" if lines == RECORDED_PTXAS[k] else "CHANGED"
+            for k, lines in ptxas.items()}
+    fmt = ", ".join
+    log("18 full step", f"ok: {n} envs x {STEP_CHECK_STEPS} steps of the battery "
+        f"(coverage {cov}; {counts['illegal']} illegal actions, {counts['ended']} ends): "
+        f"full_env.step (env_step_kernel) == plain no-reset step bitwise (packed state, "
+        f"reward, done); step_autoreset == plain step + the engine's reset bitwise; "
+        f"observe_vector and action_mask (K3b) == plain rows (log1p row entries 1 ulp apart: "
+        f"{counts['log1p_ulp']}); launches env_step {launched[0]}, K3b {launched[1]}; "
+        f"env_step_kernel at {n} envs, card time behind a sleep ({calls} back-to-back "
+        f"calls): median {k_ms * 1e3:.1f} us (rounds {fmt(f'{x * 1e3:.1f}' for x in k_all)}); "
+        f"no env ending {ends_ms['no_reset'] * 1e3:.1f} us, every env ending "
+        f"{ends_ms['all_end'] * 1e3:.1f} us; K3a on the same inputs {k3a_ms * 1e3:.1f} us; "
+        f"full_env.step call (pack, kernel, unpack) median {call_ms:.3f} ms (samples "
+        f"{fmt(f'{x:.3f}' for x in call_all)}), step_autoreset call {auto_ms:.3f} ms "
+        f"(samples {fmt(f'{x:.3f}' for x in auto_all)}); plain no-reset step {p_ms:.1f} ms; "
+        f"bound {b[0] * 1e3:.2f} us ({b[1]}: 2 x {PACKED_BYTES} + 9 B an env at "
+        f"{HBM_BYTES_PER_S:.3g} B/s); launch shape {shape['block']} threads a block, "
+        f"{shape['shared_bytes']} B shared a block, {shape['registers']} registers, "
+        f"{shape['stack_bytes']} B stack; ptxas env_step_kernel {env_ptxas}; "
+        + "; ".join(f"{name} {ptxas[k]} ({same[k]} to the recorded {RECORDED_PTXAS[k]})"
+                    for name, k in (("K2", "fused_full_rollout_kernel"),
+                                    ("K3a", "policy_step_kernel")))
+        + f" [{smi}]")
+    return {"max_abs_err": max(errs.values()), "ms": k_ms, "ms_rounds": k_all,
+            "plain_ms": p_ms, "call_ms": call_ms, "step_autoreset_call_ms": auto_ms,
+            "no_reset_ms": ends_ms["no_reset"], "all_end_ms": ends_ms["all_end"],
+            "k3a_same_inputs_ms": k3a_ms, "launch_shape": shape, "ptxas": env_ptxas,
+            "work": (n * (2 * PACKED_BYTES + 9), 0), "shape": [n]}
+
+
+def generic_counts():
+    return {"env_step": FP.env_step_fused.launches, "K3b": FP.observe_fused.launches,
+            "K3a": FP.step_fused.launches, "sampler": FP.sample_fused.launches}
+
+
+def phase_generic_train(smi):
+    """The fast_decay recipe over the generic rollout: the engine's step
+    kernel and K3b, the policy and ``categorical`` in torch."""
+    cfg = TP.PPOConfig(**GENERIC)
+    init_fn, update_fn, _ = TP.make_ppo(TP.full_env_hooks(), cfg, device=DEV)
+    ts = init_fn([int(w) for w in KR.seed_key(0, device="cpu")])
+    p0 = [p.detach().clone() for p in TP.param_list(ts.params)]
+    illegal = torch.zeros((), dtype=torch.int64, device=DEV)
+    episodes = torch.zeros((), dtype=torch.int64, device=DEV)
+    FP.env_step_fused.launches = FP.observe_fused.launches = 0
+    FP.step_fused.launches = FP.sample_fused.launches = 0
+    hist, times, host, stages = [], [], [], []
+    for _ in range(GENERIC_UPDATES):
+        rec = {}
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        ts, m = update_fn(ts, record=rec)
+        e1.record()
+        e1.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        times.append(e0.elapsed_time(e1))
+        ev = rec["events"]
+        stages.append({name: ev[i - 1][1].elapsed_time(e) for i, (name, e) in enumerate(ev) if i})
+        illegal += legal_count(rec["traj"])
+        episodes += rec["traj"].done.sum()
+        hist.append({k: float(v) for k, v in m.items()})
+    launches = generic_counts()
+    T = cfg.rollout_len
+    want = {"env_step": GENERIC_UPDATES * T, "K3b": GENERIC_UPDATES * 2 * (T + 1),
+            "K3a": 0, "sampler": 0}
+    assert launches == want, (launches, want)
+    assert int(illegal) == 0, f"{int(illegal)} sampled actions were illegal"
+    assert all(np.isfinite(v) for m in hist for v in m.values()), hist
+    moved = max(float((p.detach() - q).abs().max()) for p, q in zip(TP.param_list(ts.params), p0))
+    assert moved > 0 and int(episodes) > 0
+    upd_ms = statistics.median(times)
+    mid = stages[len(stages) // 2]
+    state = {"ts": ts}
+
+    def one():
+        state["ts"], _ = update_fn(state["ts"])
+
+    idle_prof, by_name = card_profile(one)
+    card_ms = sum(map(sum, by_name.values())) if by_name else None
+    idle = None if card_ms is None else max(0.0, 1.0 - card_ms / upd_ms)
+    top = sorted(((sum(ds), len(ds), nm) for nm, ds in by_name.items()), reverse=True)[:8]
+    env_us = [d for nm, ds in by_name.items() if "env_step_kernel" in nm for d in ds]
+    rate = cfg.n_envs * T / (upd_ms / 1e3)
+    log("19 generic PPO", f"ok: make_ppo(full_env_hooks(), fast_decay, fused_rollout=False) "
+        f"{cfg.n_envs}x{T}, ActorCritic(256, 256), {GENERIC_UPDATES} updates, launches="
+        f"{launches} (env_step {T} an update, K3b 2 a step and 2 for the last value); every "
+        f"action legal; {int(episodes)} episodes; params moved (max {moved:.3g}); update "
+        f"median {upd_ms:.3f} ms (CUDA events; samples {', '.join(f'{x:.3f}' for x in times)}; "
+        f"host clock {', '.join(f'{x:.3f}' for x in host)}) = {rate:.4g} PPO env-steps/s; "
+        f"stages of the median update (ms): {', '.join(f'{k} {v:.3f}' for k, v in mid.items())}; "
+        + ("card activity not measured (no card activity in the profile)" if card_ms is None
+           else f"card time an update {card_ms:.3f} ms (profiler) -> card idle share "
+                f"{idle:.4f} of the unprofiled update ({idle_prof:.4f} of the profiled one); "
+                f"env_step_kernel {statistics.median(env_us) * 1e3 if env_us else 0:.1f} us a "
+                f"launch x{len(env_us)}; top kernels {[(nm[:48], c, round(ms, 3)) for ms, c, nm in top]}"
+                f" (launches, ms)")
+        + f"; metrics by update {[{k: round(v, 5) for k, v in m.items()} for m in hist]} "
+        f"[{smi}]")
+    return ts, {"config": GENERIC, "updates": GENERIC_UPDATES, "launches_main_path": launches,
+                "update_ms": upd_ms, "update_ms_samples": times, "host_update_ms": host,
+                "env_steps_per_s": rate, "stages_ms": mid, "card_ms_per_update": card_ms,
+                "card_idle_share": idle, "card_idle_share_profiled": idle_prof,
+                "env_step_in_update_us": statistics.median(env_us) * 1e3 if env_us else None,
+                "top_kernels": [{"name": nm, "launches": c, "ms": ms} for ms, c, nm in top],
+                "metrics_by_update": hist, "gpu": smi}
+
+
+def phase_evaluate(smi, ts):
+    """A greedy anti-loop evaluation of phase 19's policy on the card."""
+    n0 = FP.env_step_fused.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = EV.evaluate_policy(lambda p, o, m: p(o, m), ts.params, TP.full_env_hooks(),
+                               EVAL_EPISODES, EVAL_STEPS, seed=7, obs_stats=ts.obs_stats)
+    wall = time.perf_counter() - t0
+    assert FP.env_step_fused.launches - n0 == EVAL_STEPS
+    assert set(stats) == {"episodes", "mean_reward", "mean_length", "max_reward",
+                          "mean_ante", "max_ante"}, stats
+    assert 0 <= stats["episodes"] <= EVAL_EPISODES and 0 < stats["mean_length"] <= EVAL_STEPS
+    assert np.isfinite(stats["mean_reward"]) and stats["max_ante"] >= 1
+    log("20 evaluate", f"ok: evaluate_policy greedy anti-loop, {EVAL_EPISODES} episodes x "
+        f"{EVAL_STEPS} steps, phase 19's policy and statistics: {stats}; env_step launches "
+        f"{EVAL_STEPS}; wall {wall:.3f} s ({wall / EVAL_STEPS * 1e3:.2f} ms a step) [{smi}]")
+    return {"stats": stats, "wall_s": wall, "episodes": EVAL_EPISODES, "steps": EVAL_STEPS}
+
+
+def phase_gym(smi):
+    """The Gym shell on the card: random legal steps against the same shell
+    on the CPU, and the validator's two checks."""
+    card, cpu = BalatroGymEnv(seed=21), BalatroGymEnv(seed=21, device="cpu")
+    o, _ = card.reset()
+    oc, _ = cpu.reset()
+    rng = np.random.default_rng(21)
+    ends, reward = 0, 0.0
+    t0 = time.perf_counter()
+    for t in range(GYM_STEPS):
+        assert o.keys() == oc.keys() and all(
+            o[k].dtype == oc[k].dtype and np.array_equal(o[k], oc[k]) for k in o), t
+        a = int(rng.choice(np.flatnonzero(o["action_mask"])))
+        o, r, d, _, _ = card.step(a)
+        oc, rc, dc, _, _ = cpu.step(a)
+        assert (r, d) == (rc, dc), (t, r, rc, d, dc)
+        reward += r
+        if d:
+            ends += 1
+            o, _ = card.reset()
+            oc, _ = cpu.reset()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    assert BalatroEnvValidator.validate_determinism()
+    assert BalatroEnvValidator.validate_action_masking()
+    vwall = time.perf_counter() - t0
+    log("21 gym shell", f"ok: BalatroGymEnv on the card, {GYM_STEPS} random legal steps == the "
+        f"same shell on the CPU (observations with their dtypes, rewards, dones); {ends} "
+        f"episodes ended, reward {reward:.2f}; {wall:.2f} s for both shells; "
+        f"validate_determinism and validate_action_masking on the card pass in {vwall:.2f} s "
+        f"[{smi}]")
+    return {"steps": GYM_STEPS, "ends": ends, "validators_s": vwall}
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1132,6 +1447,10 @@ def main():
     ts, update_fn, train_launches, train_hist = phase_train_main()
     parity = phase_train_parity()
     tt = phase_train_timing(smi, ts, update_fn)
+    es = phase_env_step(smi)
+    g_ts, generic = phase_generic_train(smi)
+    ev = phase_evaluate(smi, g_ts)
+    gym = phase_gym(smi)
 
     # (bytes, integer operations) of each kernel's measured call
     work = {"fused_rollout": (N_ENVS * ((FR.N_SCAL + 32 + 32 + 64) * 4
@@ -1141,7 +1460,8 @@ def main():
                                    N_ENVS * (N_STEPS + 1) * THREEFRY_OPS),
             **{k: w for k, w in zip(("policy_step", "policy_observe", "policy_sample"),
                                     policy_work(POLICY_ENVS, pt["hand_cards"]).values())},
-            "hand_histograms": hist["work"], "alu_chains": alu["work"]}
+            "hand_histograms": hist["work"], "alu_chains": alu["work"],
+            "env_step": es["work"]}
     src = "balatro_gym_tpu_torch/csrc/"
     policy_src = src + "fused_policy_rollout.cu"
     kernels = [{
@@ -1183,6 +1503,18 @@ def main():
                         "trainer_layout_ms": pt["times"]["sampler trainer"]["card_ms"],
                         "trainer_layout_strides": pt["layouts"]["sampler trainer"]})
     kernels[-3]["card_idle_share_profiled"] = pt["idle_profiled"]
+    kernels[-2]["generic_launches"] = generic["launches_main_path"]["K3b"]
+    kernels.append({
+        "name": "env_step", "route": "cuda", "source": policy_src,
+        "replaces": "balatro_gym_tpu/engine/full_env.py:870",
+        "replaces_note": "the engine's step, XLA in the reference: no Pallas kernel",
+        "launches": generic["launches_main_path"]["env_step"],
+        "max_abs_err": es["max_abs_err"], "ms": es["ms"], "ms_from": "events behind a sleep",
+        "plain_ms": es["plain_ms"], "call_ms": es["call_ms"],
+        "step_autoreset_call_ms": es["step_autoreset_call_ms"],
+        "no_reset_ms": es["no_reset_ms"], "all_end_ms": es["all_end_ms"],
+        "k3a_same_inputs_ms": es["k3a_same_inputs_ms"], "shape": es["shape"],
+        "ptxas": es["ptxas"], **es["launch_shape"]})
     kernels.append({
         "name": "hand_histograms", "route": "cuda", "source": src + "hand_histograms.cu",
         "replaces": "balatro_gym_tpu/ops/pallas_kernels.py:44", "launches": hist["launches"],
@@ -1222,6 +1554,7 @@ def main():
                "parity_params_max_abs_diff": parity["params"],
                "parity_metrics_max_rel_diff": parity["metrics_rel"], **tt, "gpu": smi}
     print(json.dumps({"trainer": trainer}), flush=True)
+    print(json.dumps({"generic_trainer": generic, "evaluate": ev, "gym": gym}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

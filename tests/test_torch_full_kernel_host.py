@@ -335,6 +335,17 @@ extern "C" void host_step(const int* c, const int* i, const uint32_t* r, const i
     policy_step_kernel(c, i, r, act, ft, co, io, ro, rw, done, obs, mask, n);
   }
 }
+// The engine's step (env_step_kernel), as K3a.
+extern "C" void host_env_step(const int* c, const int* i, const uint32_t* r, const int* act,
+                              const float* ft, int* co, int* io, uint32_t* ro, float* rw,
+                              uint8_t* done, int n) {
+  for (int e = 0; e < n; ++e) {
+    blockIdx.x = e / kStepBlock;
+    threadIdx.x = e % kStepBlock;
+    memset(k3a_slots + threadIdx.x * sizeof(State), 0xA5, sizeof(State));
+    env_step_kernel(c, i, r, act, ft, co, io, ro, rw, done, n);
+  }
+}
 // K3b and the sampler, block by block: each phase runs for every thread of
 // the block before the next one starts (the kernels' __syncthreads), over
 // shared memory filled with junk before the block runs.
@@ -389,6 +400,7 @@ def host_policy(tmp_path_factory):
     so = _compile(tmp_path_factory, POLICY_LAUNCH)
     so.host_observe.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
     so.host_step.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int]
+    so.host_env_step.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int]
     so.host_sample.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                                ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
                                ctypes.c_void_p]
@@ -413,6 +425,18 @@ def host_policy(tmp_path_factory):
                      *(out[k].data_ptr() for k in ("cards", "ints", "rng")),
                      reward.data_ptr(), done.data_ptr(), obs.data_ptr(), mask.data_ptr(), n)
         return out, reward, done, obs.T, mask.T
+
+    def env_step(packed, actions):
+        n = packed["ints"].shape[1]
+        out = {k: torch.empty_like(v) for k, v in packed.items()}
+        reward, done = torch.empty(n), torch.empty(n, dtype=torch.bool)
+        so.host_env_step(*(packed[k].data_ptr() for k in ("cards", "ints", "rng")),
+                         actions.data_ptr(), F.float_tables("cpu").data_ptr(),
+                         *(out[k].data_ptr() for k in ("cards", "ints", "rng")),
+                         reward.data_ptr(), done.data_ptr(), n)
+        return out, reward, done
+
+    step.env_step = env_step
 
     def sample(key, logits):
         n = logits.shape[0]
@@ -600,4 +624,30 @@ def test_host_policy_step_reset_batches(host_policy):
         ref = FP.step_rows_reference(p, a)
         assert_step_equal(step(p, a), ref, what)
         assert bool((ref[2] == ends).all()), what
+
+
+@pytest.mark.parametrize("n", (33, 512))
+def test_host_env_step_fed_battery(host_policy, n):
+    """The engine's step kernel (K3a's step without its autoreset) along 12
+    fed legal steps of a diversified state, then on the autoreset batches
+    (every env ending keeps its final state), against the plain
+    ``_step(..., autoreset=False)``."""
+    _, step, _ = host_policy
+    rng = np.random.default_rng(n + 1)
+    st = BAT.surgery(F.rollout_full_fused(n, n, 4, device="cpu")["state"], rng)
+    packed = F.pack_full_state(st)
+    for t in range(12):
+        a = torch.as_tensor(BAT.sample_legal(F._legal_rows(F._load(packed)).T.numpy(), rng))
+        got, want = step.env_step(packed, a.to(torch.int32)), FP.env_step_rows_reference(packed, a)
+        for k in ("cards", "ints", "rng"):
+            bad = torch.nonzero(got[0][k] != want[0][k])
+            assert len(bad) == 0, f"step {t}: {k} differs at {bad[:5].tolist()}"
+        assert torch.equal(got[2], want[2]), t
+        np.testing.assert_allclose(got[1].numpy(), want[1].numpy(), rtol=0, atol=1e-4)
+        packed = FP.step_rows_reference(packed, a)[0]       # go on from the reset state
+    for (p, a), ends in zip(BAT.reset_batches(packed), (False, True)):
+        got, want = step.env_step(p, a), FP.env_step_rows_reference(p, a)
+        assert all(torch.equal(got[0][k], want[0][k]) for k in p) and torch.equal(got[2], want[2])
+        assert bool((got[2] == ends).all()) and torch.equal(got[1], want[1])
+        assert bool((F._load(got[0])["done"] == ends).all())
 

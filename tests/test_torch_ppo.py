@@ -57,6 +57,8 @@ from balatro_gym_tpu.ops import fused_full_rollout as JFF
 from balatro_gym_tpu.ops import fused_policy_rollout as JFP
 from balatro_gym_tpu.train import normalize as JN
 from balatro_gym_tpu.train import ppo as JP
+from balatro_gym_tpu_torch.engine import full_env as TFE
+from balatro_gym_tpu_torch.ops import fused_full_rollout as TFF
 from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
 from balatro_gym_tpu_torch.ops import kernel_rng as KR
 from balatro_gym_tpu_torch.train import cli as TCLI
@@ -68,6 +70,7 @@ RTOL, ATOL = 1e-5, 1e-7
 STATS_ATOL = 1e-6     # means of normalised observations, O(1) values summed
 TINY = dict(n_envs=16, rollout_len=4, epochs=2, minibatches=2, hidden=(32,))
 FUSED = dict(n_envs=1024, rollout_len=2, epochs=2, minibatches=2, fused_rollout=True)
+GENERIC = dict(n_envs=1024, rollout_len=2, epochs=2, minibatches=2)   # FUSED, not fused
 TINYF = float(np.finfo(np.float32).tiny)
 CASES = {
     "default": {},
@@ -360,29 +363,86 @@ def _mint(path):
     np.savez(path, **out)
 
 
+def _mint_generic(path):
+    """The flagship env's generic (non-fused) update: the reference's own
+    ``vmap(step_autoreset)``, ``observe_vector`` and ``action_mask`` in its
+    jitted update, its actions recorded from inside it, and its rewards and
+    dones from replaying them through the same jitted step."""
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", False)
+    from balatro_gym_tpu.engine import full_env as fe
+
+    got, out = [], {}
+    orig = jax.random.categorical
+
+    def categorical(key, logits, *args, **kw):
+        res = orig(key, logits, *args, **kw)
+        jax.debug.callback(lambda a: got.append(np.asarray(a)), res, ordered=True)
+        return res
+
+    jax.random.categorical = categorical
+    cfg = JP.PPOConfig(**GENERIC)
+    init_fn, update_fn, _ = JP.make_ppo(JP.full_env_hooks(), cfg)
+    rng = np.random.default_rng(5)
+    ts = init_fn(jax.random.key(0)).replace(
+        obs_stats=JN.RunningStats(
+            mean=jnp.asarray(rng.normal(0, 0.3, JFP.OBS_DIM), jnp.float32),
+            var=jnp.asarray(rng.uniform(0.2, 2.0, JFP.OBS_DIM), jnp.float32),
+            count=jnp.float32(5000.0)),
+        ret_stats=JN.RunningStats(mean=jnp.float32(0.3), var=jnp.float32(2.5),
+                                  count=jnp.float32(5000.0)),
+        ret_carry=jnp.asarray(rng.normal(0, 1, cfg.n_envs), jnp.float32))
+    flatten("before", ref_state(ts, True), out)
+    ts1, metrics = jax.jit(update_fn)(ts)
+    jax.block_until_ready(ts1.params)
+    flatten("after", ref_state(ts1, True), out)
+    for k, v in metrics.items():
+        out[f"metric_{k}"] = np.asarray(v)
+    replay = jax.jit(jax.vmap(fe.step_autoreset))
+    st = ts.env_states
+    for t in range(cfg.rollout_len):
+        out[f"action_{t}"] = got[t]
+        st, reward, done = replay(st, jnp.asarray(got[t]))
+        out[f"reward_{t}"], out[f"done_{t}"] = np.asarray(reward), np.asarray(done)
+    np.savez(path, **out)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def mint_process(tmp_path_factory):
     """Starts the JAX side with the module, so that it runs beside the
-    in-process tests, which come first in this file."""
-    path = str(tmp_path_factory.mktemp("mint") / "ppo.npz")
+    in-process tests, which come first in this file: the fused update's
+    mint and the generic update's, in two processes."""
     env = dict(os.environ)
     env.pop("JAX_PLATFORMS", None)
     env["PYTHONPATH"] = os.pathsep.join(filter(None, [REPO, env.get("PYTHONPATH")]))
-    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mint", path],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                            env=env, cwd=REPO)
-    yield path, proc
-    if proc.poll() is None:
-        proc.kill()
-        proc.communicate()
+    procs = {}
+    for flag in ("--mint", "--mint-generic"):
+        path = str(tmp_path_factory.mktemp("mint") / "ppo.npz")
+        procs[flag] = (path, subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), flag, path], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, env=env, cwd=REPO))
+    yield procs
+    for _, proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def _minted(procs, flag):
+    path, proc = procs[flag]
+    out, _ = proc.communicate(timeout=900)
+    assert proc.returncode == 0, out[-4000:]
+    return dict(np.load(path))
 
 
 @pytest.fixture(scope="module")
 def minted(mint_process):
-    path, proc = mint_process
-    out, _ = proc.communicate(timeout=900)
-    assert proc.returncode == 0, out[-4000:]
-    return dict(np.load(path))
+    return _minted(mint_process, "--mint")
+
+
+@pytest.fixture(scope="module")
+def minted_generic(mint_process):
+    return _minted(mint_process, "--mint-generic")
 
 
 @pytest.mark.parametrize("shuffle", [False, True])
@@ -424,6 +484,47 @@ def test_fused_update_matches_reference(minted, shuffle):
         np.testing.assert_array_equal(got, w, err_msg=k)
     ref_metrics = {k: minted[f"{tag}_metric_{k}"] for k in METRICS}
     assert_learner(out, want, tag, metrics, ref_metrics)
+
+
+def test_generic_update_matches_reference(minted_generic):
+    """The flagship env's update over the generic rollout (the engine's
+    step, observation and mask; ``categorical``) against the reference's
+    jitted one. Tolerances as the fused update's, but raw rewards within
+    PARITY #B11's 1e-4 (the reference's jit contracts the reward's
+    multiply-adds into FMAs) and the observations the reference's jit made
+    with reciprocal multiplies, 1 ulp from the port's divisions."""
+    m = minted_generic
+    cfg = TP.PPOConfig(**GENERIC)
+    hooks = TP.full_env_hooks()
+    before = unflatten(m, "before")
+    ts = TP.load_reference_state(hooks, cfg, before, device="cpu")
+    assert isinstance(ts.env_states, TFE.FullEnvState)
+    ts0 = copy.deepcopy(ts)
+    _, update_fn, _ = TP.make_ppo(hooks, cfg, device="cpu")
+    n0 = (FP.observe_fused.launches, FP.env_step_fused.launches)
+    rec = {}
+    out, metrics = update_fn(ts, record=rec)
+    assert (FP.observe_fused.launches, FP.env_step_fused.launches) == n0
+    traj, n = rec["traj"], cfg.n_envs
+    keys = [KR.split_keys(k, 1)[0] for k in KR.split_keys(KR.split_keys(before["key"], 4)[1],
+                                                           cfg.rollout_len)]
+    for t in range(cfg.rollout_len):
+        same = traj.action[t].numpy() == m[f"action_{t}"]
+        if not same.all():           # a flip needs a near-tie of the rollout's own logits
+            with torch.no_grad():
+                logits, _ = ts0.params(traj.obs[t], traj.mask[t])
+            ties = near_ties(keys[t], logits, torch.arange(n * 60).view(n, 60)).numpy()
+            assert ties[~same].all(), t
+        assert same.all(), f"step {t}: a near-tie flipped an action"
+        np.testing.assert_allclose(rec["raw"][t].numpy(), m[f"reward_{t}"], rtol=0, atol=1e-4)
+        np.testing.assert_array_equal(traj.done[t].numpy(), m[f"done_{t}"])
+    want = unflatten(m, "after")
+    packed = TFF.pack_full_state(out.env_states)
+    for k in ("cards", "ints", "rng"):
+        w = want["env_states"][k]
+        w = w.astype(np.uint32).view(np.int32) if k == "rng" else w
+        np.testing.assert_array_equal(packed[k].numpy(), w, err_msg=k)
+    assert_learner(out, want, "generic", metrics, {k: m[f"metric_{k}"] for k in METRICS})
 
 
 # ---------------------------------------------------------------------------
@@ -496,11 +597,21 @@ def test_cli_trains_and_writes_the_summary(tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (["--algorithm", "a2c"], "queue 1 item 9"), (["--algorithm", "dqn"], "queue 1 item 9"),
     (["--distributed"], "queue 1 item 10"), (["--checkpoint-dir", "x"], "queue 1 item 11"),
-    (["--resume", "x"], "queue 1 item 11"), (["--env", "full"], "queue 1 item 4")])
+    (["--resume", "x"], "queue 1 item 11")])
 def test_cli_unsupported_options_exit_with_their_roadmap_item(argv, item):
     with pytest.raises(SystemExit) as exc:
         TCLI.main(argv + ["--device", "cpu", "--updates", "1", "--summary", ""])
     assert exc.value.code not in (0, None) and item in str(exc.value.code)
+
+
+def test_cli_full_env_trains_without_the_fused_rollout():
+    """``--env full`` alone trains over the generic rollout: one tiny update
+    on the CPU, with the reference's summary keys."""
+    got = TCLI.main(["--env", "full", "--updates", "1", "--n-envs", "16", "--rollout", "4",
+                     "--hidden", "32", "--device", "cpu", "--summary", ""])
+    assert set(got) == SUMMARY_KEYS and got["env"] == "full"
+    assert got["total_env_steps"] == 16 * 4 and set(got["final_metrics"]) == set(METRICS)
+    assert all(np.isfinite(v) for v in got["final_metrics"].values())
 
 
 SUMMARY_KEYS = {"algorithm", "env", "total_env_steps", "wall_seconds", "steps_per_second",
@@ -549,8 +660,13 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_full_env_needs_the_fused_rollout():
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        TP.make_ppo(TP.full_env_hooks(), TP.PPOConfig(**TINY), device="cpu")
+    """The flagship env no longer needs it: its hooks carry the engine's
+    ``step`` and ``step_autoreset``, and it trains over the generic
+    rollout too. The fused rollout is still the flagship env's only."""
+    hooks = TP.full_env_hooks()
+    assert hooks.step is TFE.step and hooks.step_autoreset is TFE.step_autoreset
+    assert TP.sim_env_hooks().step is not None
+    TP.make_ppo(hooks, TP.PPOConfig(**TINY), device="cpu")
     with pytest.raises(ValueError, match="flagship"):
         TP.make_ppo(TP.sim_env_hooks(), TP.PPOConfig(**TINY, fused_rollout=True), device="cpu")
 
@@ -585,3 +701,5 @@ def test_fused_collection_runs_the_hooks_ops():
 
 if __name__ == "__main__" and len(sys.argv) == 3 and sys.argv[1] == "--mint":
     _mint(sys.argv[2])
+if __name__ == "__main__" and len(sys.argv) == 3 and sys.argv[1] == "--mint-generic":
+    _mint_generic(sys.argv[2])
