@@ -89,6 +89,13 @@ def standard_deck_arrays():
     return ranks, suits
 
 
+def encode_sim(rank, suit):
+    """The sim's card code ``sim_suit * 13 + (rank - 2)`` of canonical
+    (rank, suit), python ints or integer tensors. The sim orders suits
+    Spades, Hearts, Diamonds, Clubs, so its suit is ``3 - suit``."""
+    return (3 - suit) * 13 + (rank - 2)
+
+
 def card_str(rank: int, suit: int) -> str:
     """A card as text, e.g. 'A\u2660'; '--' for an empty slot."""
     if rank == NO_CARD:

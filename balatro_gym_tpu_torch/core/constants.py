@@ -31,6 +31,7 @@ class Action:
     SELL_JOKER_BASE = 32          # 32-36
     SELECT_BLIND_BASE = 45        # 45-47
     SKIP_BLIND = 48
+    SELECT_FROM_PACK_BASE = 50    # 50-54
     SKIP_PACK = 55
     ACTION_SPACE_SIZE = 60
 

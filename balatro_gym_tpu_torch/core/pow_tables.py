@@ -3,7 +3,7 @@
 Port of ``balatro_gym_tpu/core/pow_tables.py``. Every x-mult the engines
 apply is a power of an exact base with a small integer exponent; taking the
 value from a correctly rounded float64 table (instead of a runtime ``pow``)
-keeps the product bit-identical on every device. ``pow2/pow3/pow15`` look
+keeps the product bit-identical on every device. ``pow2/pow3/pow15/pow115`` look
 the value up at ``clamp(int(e), 0, len - 1)``, as the reference's one-hot dot
 does.
 """
@@ -38,3 +38,7 @@ def pow3(e, dtype=torch.float32):
 
 def pow15(e, dtype=torch.float32):
     return _gather(POW15_NP, e, dtype)
+
+
+def pow115(e, dtype=torch.float32):
+    return _gather(POW115_NP, e, dtype)

@@ -1,10 +1,10 @@
 """Play Balatro by hand in a terminal (reference: play_by_hand.py).
 
-Run: python -m balatro_gym_tpu_torch.envs.play_cli [--env full|draw] [--seed N]
-[--device cpu]
+Run: python -m balatro_gym_tpu_torch.envs.play_cli [--env full|macro|draw]
+[--seed N] [--device cpu]
 
-Port of ``balatro_gym_tpu/envs/play_cli.py`` for the flagship env and the
-8-card draw env (the macro env is not ported yet).
+Port of ``balatro_gym_tpu/envs/play_cli.py``: the flagship env, the macro
+env and the 8-card draw env.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import numpy as np
 
 def main(argv=None):  # pragma: no cover - interactive
     p = argparse.ArgumentParser(description="Play Balatro by hand")
-    p.add_argument("--env", choices=["full", "draw"], default="full")
+    p.add_argument("--env", choices=["full", "macro", "draw"], default="full")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
@@ -25,6 +25,10 @@ def main(argv=None):  # pragma: no cover - interactive
         from balatro_gym_tpu_torch.envs import BalatroGymEnv
 
         env = BalatroGymEnv(seed=args.seed, render_mode="human", device=args.device)
+    elif args.env == "macro":
+        from balatro_gym_tpu_torch.envs import BalatroMacroGymEnv
+
+        env = BalatroMacroGymEnv(seed=args.seed, render_mode="human", device=args.device)
     else:
         from balatro_gym_tpu_torch.envs import EightCardDrawGymEnv
 

@@ -32,6 +32,7 @@ J_GROS_MICHEL = 38
 J_EVEN_STEVEN = 39
 J_ODD_TODD = 40
 J_SCHOLAR = 41
+J_EGG = 46
 J_BLACKBOARD = 48
 J_ICE_CREAM = 50
 J_BLUE_JOKER = 53
@@ -40,11 +41,13 @@ J_CAVENDISH = 61
 J_SHORTCUT = 69
 J_BARON = 72
 J_LUCHADOR = 77
+J_GIFT_CARD = 79
 J_TRADING_CARD = 95
 J_POPCORN = 97
 J_WALKIE_TALKIE = 101
 J_SMILEY_FACE = 104
 J_ACROBAT = 108
+J_SWASHBUCKLER = 110
 J_ROUGH_GEM = 116
 J_BLOODSTONE = 117
 J_ARROWHEAD = 118

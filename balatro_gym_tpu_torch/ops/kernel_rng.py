@@ -47,17 +47,27 @@ def threefry2x32(k1, k2, x1, x2):
     ks = (k1, k2, k1 ^ k2 ^ _PARITY)
     x0 = (_u32(x1) + ks[0]) & _M32
     x1 = (_u32(x2) + ks[1]) & _M32
-
-    def four(x0, x1, rots):
-        for r in rots:
-            x0 = (x0 + x1) & _M32
-            x1 = _rotl(x1, r) ^ x0
+    rounds = (_ROT1, _ROT2, _ROT1, _ROT2, _ROT1)
+    if not (torch.is_tensor(x0) or torch.is_tensor(x1)):        # python ints
+        for i, rots in enumerate(rounds):
+            for r in rots:
+                x0 = (x0 + x1) & _M32
+                x1 = _rotl(x1, r) ^ x0
+            x0 = (x0 + ks[(i + 1) % 3]) & _M32
+            x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
         return x0, x1
-
-    for i, rots in enumerate((_ROT1, _ROT2, _ROT1, _ROT2, _ROT1)):
-        x0, x1 = four(x0, x1, rots)
-        x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    # tensors: the same words, updated in place on two full-shape copies
+    dev = (x0 if torch.is_tensor(x0) else x1).device
+    x0, x1 = (t.clone() for t in torch.broadcast_tensors(
+        *(t if torch.is_tensor(t) else torch.tensor(t, dtype=torch.int64, device=dev)
+          for t in (x0, x1))))
+    for i, rots in enumerate(rounds):
+        for r in rots:
+            x0.add_(x1).bitwise_and_(_M32)
+            hi = x1 >> (32 - r)
+            x1.bitwise_left_shift_(r).bitwise_or_(hi).bitwise_and_(_M32).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(_M32)
+        x1.add_(ks[(i + 2) % 3]).add_(i + 1).bitwise_and_(_M32)
     return x0, x1
 
 

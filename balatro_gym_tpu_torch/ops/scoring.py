@@ -43,25 +43,35 @@ def _joker_flags(jokers):
             (jokers == JT.J_SHORTCUT).any(-1))
 
 
-def _joker_chance(key, n_jok, n_cards):
+def _uniform(k1, k2, idx, x64):
+    """``jax.random.uniform`` at the default float width: float64 from
+    64-bit draws under x64, float32 from 32-bit draws in production."""
+    if x64:
+        return KR.uniform_f64(KR.random_bits64(k1, k2, idx))
+    return KR.uniform_f32(KR.random_bits32(k1, k2, idx))
+
+
+def _joker_chance(key, n_jok, n_cards, x64=True):
     """The joker pass's draws: the Bloodstone coin matrix ``[B, n_jok,
-    n_cards]`` (float64 uniform < 0.5) and Misprint's ``randint(0, 24)``
-    (int64), from ``split(key)`` as the reference draws them."""
+    n_cards]`` (uniform < 0.5) and Misprint's ``randint(0, 24)``, from
+    ``split(key)`` as the reference draws them, at the default widths of
+    x64 (64-bit draws) or of production (32-bit draws)."""
     (b1, b2), (m1, m2) = KR.split2(key[..., 0], key[..., 1])
     idx = torch.arange(n_jok * n_cards, device=key.device)
-    bits = KR.random_bits64(b1[..., None], b2[..., None], idx)
-    coin = (KR.uniform_f64(bits) < 0.5).reshape(*key.shape[:-1], n_jok, n_cards)
-    misprint = KR.randint(m1, m2, 0, 24, bits=64)
+    coin = (_uniform(b1[..., None], b2[..., None], idx, x64) < 0.5).reshape(
+        *key.shape[:-1], n_jok, n_cards)
+    misprint = KR.randint(m1, m2, 0, 24, bits=64 if x64 else 32)
     return coin, misprint
 
 
 def _joker_pass(t: JT.JokerTables, jokers, ranks, suits, smask, valid, ht,
                 hand_table_chips, hand_table_mult, x2_hand, x3_hand,
-                hands_left, discards_left, deck_size, key):
+                hands_left, discards_left, deck_size, key, x64=True):
     """Joker effects of the individual and main scoring phases.
 
     ``suits`` are categories 0..4 (4 = Stone). Returns (chips_add int64,
-    mult_add int64, x_mult float64, money int64), each ``[B]``.
+    mult_add int64, x_mult float64 (float32 without ``x64``), money int64),
+    each ``[B]``.
     """
     dev = jokers.device
     jvalid = jokers > 0
@@ -91,7 +101,7 @@ def _joker_pass(t: JT.JokerTables, jokers, ranks, suits, smask, valid, ht,
     # Triboulet: x2 per scoring Q/K per copy.
     e2 = cnt(JT.J_TRIBOULET) * (rank_hist[..., 12] + rank_hist[..., 13])
     # Bloodstone: 50% x2 per (joker, scoring Heart) pair.
-    coin, misprint = _joker_chance(key, jokers.shape[-1], ranks.shape[-1])
+    coin, misprint = _joker_chance(key, jokers.shape[-1], ranks.shape[-1], x64)
     blood_j = (jokers == JT.J_BLOODSTONE) & jvalid
     hearts = smask & (suits == 2)
     e2 = e2 + (blood_j[..., :, None] & hearts[..., None, :] & coin).sum((-2, -1))
@@ -125,13 +135,14 @@ def _joker_pass(t: JT.JokerTables, jokers, ranks, suits, smask, valid, ht,
           + cnt(JT.J_BLACKBOARD) * all_spade_club
           + cnt(JT.J_FLOWER_POT) * flower)
     e15 = cnt(JT.J_BARON) * nkings
-    x = P.pow2(e2, _F64) * P.pow3(e3, _F64) * P.pow15(e15, _F64)
+    fdt = _F64 if x64 else torch.float32
+    x = P.pow2(e2, fdt) * P.pow3(e3, fdt) * P.pow15(e15, fdt)
     return chips, mult, x, money
 
 
 def score_sim(ranks, suits, valid, enh, ed, seal, base_value, jokers,
               hands_left, discards_left, deck_size, key,
-              tables: JT.JokerTables | None = None):
+              tables: JT.JokerTables | None = None, x64: bool = True):
     """``BalatroSimulator.calculate_score`` on a batch.
 
     Args:
@@ -141,9 +152,12 @@ def score_sim(ranks, suits, valid, enh, ed, seal, base_value, jokers,
         jokers: ``[B, J]`` joker ids (0 = empty).
         deck_size: ``[B]`` purchased-card count (the sim path's "deck").
         key: ``[B, 2]`` Threefry key for Lucky, Bloodstone and Misprint.
+        x64: the reference's x64 widths (64-bit draws, float64 products);
+            False: its production widths (32-bit draws, float32 products,
+            the score converted to int32 saturating, as XLA converts).
 
-    Returns (score int64, money_delta int64, hand_type int64,
-    scoring_mask bool ``[B, N]``).
+    Returns (score, money_delta int64, hand_type int64, scoring_mask bool
+    ``[B, N]``); the score is int64, or int32 without ``x64``.
     """
     t = tables or JT.get_tables()
     dev = ranks.device
@@ -167,13 +181,14 @@ def score_sim(ranks, suits, valid, enh, ed, seal, base_value, jokers,
         + (ed_hist * _tab(C.ED_MULT, dev)).sum(-1)
     n_glass = enh_hist[..., C.Enhancement.GLASS]
     n_15 = enh_hist[..., C.Enhancement.STEEL] + ed_hist[..., C.Edition.POLYCHROME]
-    x = P.pow2(n_glass, _F64) * P.pow15(n_15, _F64)
+    fdt = _F64 if x64 else torch.float32
+    x = P.pow2(n_glass, fdt) * P.pow15(n_15, fdt)
     n_gold_seal = (smask & (seal == C.Seal.GOLD)).sum(-1)
     money = 3 * (enh_hist[..., C.Enhancement.GOLD] + n_gold_seal)
     # Lucky: +$1 at 20% per scoring lucky card.
     (l1, l2), k_jok = KR.split2(key[..., 0], key[..., 1])
     idx = torch.arange(ranks.shape[-1], device=dev)
-    lucky_roll = KR.uniform_f64(KR.random_bits64(l1[..., None], l2[..., None], idx)) < 0.2
+    lucky_roll = _uniform(l1[..., None], l2[..., None], idx, x64) < 0.2
     money = money + (smask & (enh == C.Enhancement.LUCKY) & lucky_roll).sum(-1)
 
     # The sim pipeline's joker context has no hands/discards keys, so
@@ -185,15 +200,19 @@ def score_sim(ranks, suits, valid, enh, ed, seal, base_value, jokers,
         t, jokers, ranks, suits, smask, valid, ht,
         t.chips_hand_sim, t.mult_hand_sim, t.x2_hand_sim, t.x3_hand_sim,
         one, one * 0, torch.as_tensor(deck_size, dtype=_I64, device=dev),
-        torch.stack(k_jok, -1))
+        torch.stack(k_jok, -1), x64)
     chips = chips + jc
     add = add + jm
     x = x * jx
     money = money + jmoney
 
-    final_mult = (mult + add).to(_F64) * x
-    score = torch.trunc(chips.to(_F64) * final_mult).to(_I64)
-    return score, money, ht, smask
+    final_mult = (mult + add).to(fdt) * x
+    score = torch.trunc(chips.to(fdt) * final_mult)
+    if x64:
+        return score.to(_I64), money, ht, smask
+    big = score >= 2.0 ** 31
+    score = torch.where(big, 0.0, score).clamp(min=-2.0 ** 31).to(torch.int32)
+    return torch.where(big, torch.iinfo(torch.int32).max, score), money, ht, smask
 
 
 def score_env_unified(ranks, suits, valid, enh, ed, levels, jokers,

@@ -1,26 +1,32 @@
-"""Training command line of the port: PPO on one device.
+"""Training command line of the port: PPO, A2C or DQN on one device.
 
-Port of ``balatro_gym_tpu/train/cli.py`` for the PPO learner:
+Port of ``balatro_gym_tpu/train/cli.py``:
 
     python -m balatro_gym_tpu_torch.train.cli --env sim --updates 50
     python -m balatro_gym_tpu_torch.train.cli --env full --fused-rollout --bf16 --env-shuffle
     python -m balatro_gym_tpu_torch.train.cli --env full --updates 20
+    python -m balatro_gym_tpu_torch.train.cli --algorithm a2c --env full --n-envs 8192 --rollout 5
+    python -m balatro_gym_tpu_torch.train.cli --algorithm dqn --env full --n-envs 8192 --rollout 4
     python -m balatro_gym_tpu_torch.train.cli --env sim --updates 2 --device cpu
 
-It runs on the card unless given ``--device cpu`` (the fused collection's
-plain versions then run on the CPU), prints one JSON line of metrics every
+It runs on the card unless given ``--device cpu`` (the kernels' plain
+versions then run on the CPU), prints one JSON line of metrics every
 ``--log-every`` updates and writes the reference's summary keys to
 ``--summary``. ``--env full`` without ``--fused-rollout`` trains over the
 generic rollout (the engine's step, ``env_step_kernel``, and K3b for the
-observation and mask). As in the reference, ``--checkpoint-dir D`` with
-``--checkpoint-every N`` saves the whole ``TrainState`` to ``D/step_<i>``
-after every N-th update ``i`` of the run (``utils/checkpoint.py``), and
-``--resume D/step_<i>`` restores one after ``init_fn`` and trains on from
-it; ``--checkpoint-every`` alone saves nothing. The reference's options
-that the port does not carry yet (A2C and DQN, ``--distributed``) exit
-non-zero and name the ROADMAP item that ports them. ``--wandb`` logs each
-metrics line to a W&B run where ``wandb`` imports and starts, and trains
-without logging where it does not.
+observation and mask), as A2C and DQN always do. As in the reference,
+``--algorithm a2c`` takes ``A2CConfig(n_envs, rollout_len=--rollout,
+lr)`` and ``--algorithm dqn`` ``DQNConfig(n_envs, lr,
+steps_per_update=--rollout)``, every other option at the learner's
+default; the rate is counted as ``n_envs * rollout`` env-steps an update.
+``--checkpoint-dir D`` with ``--checkpoint-every N`` saves the learner's
+whole state (for DQN the replay buffer too) to ``D/step_<i>`` after every
+N-th update ``i`` of the run (``utils/checkpoint.py``), and ``--resume
+D/step_<i>`` restores one after ``init_fn`` and trains on from it;
+``--checkpoint-every`` alone saves nothing. ``--distributed``, which the
+port does not carry yet, exits non-zero and names the ROADMAP item that
+ports it. ``--wandb`` logs each metrics line to a W&B run where ``wandb``
+imports and starts, and trains without logging where it does not.
 """
 from __future__ import annotations
 
@@ -33,15 +39,13 @@ import torch
 
 # option -> (is it set?, the ROADMAP item that ports it)
 _NOT_PORTED = {
-    "--algorithm a2c|dqn": (lambda a: a.algorithm != "ppo",
-                            "A2C and DQN are not ported (ROADMAP queue 1 item 9)"),
     "--distributed": (lambda a: a.distributed,
                       "data-parallel training is not ported (ROADMAP queue 1 item 10)"),
 }
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Balatro PPO trainer (PyTorch, one device)")
+    p = argparse.ArgumentParser(description="Balatro trainer (PyTorch, one device)")
     p.add_argument("--algorithm", choices=["ppo", "a2c", "dqn"], default="ppo")
     p.add_argument("--env", choices=["sim", "full"], default="sim")
     p.add_argument("--updates", type=int, default=50)
@@ -88,6 +92,7 @@ def main(argv=None) -> dict:
     if args.structured_net and args.env != "full":
         raise SystemExit("--structured-net requires --env full")
 
+    from balatro_gym_tpu_torch.core.device import run_device
     from balatro_gym_tpu_torch.ops import kernel_rng as KR
     from balatro_gym_tpu_torch.train.ppo import (
         PPOConfig, full_env_hooks, make_ppo, sim_env_hooks)
@@ -101,7 +106,20 @@ def main(argv=None) -> dict:
                     total_updates=args.updates, ent_coef_final=args.ent_final,
                     lr_final=args.lr_final,
                     **({"hidden": tuple(args.hidden)} if args.hidden else {}))
-    init_fn, update_fn, _ = make_ppo(hooks, cfg, device=args.device)
+    if args.algorithm == "a2c":
+        from balatro_gym_tpu_torch.train.a2c import A2CConfig, make_a2c
+
+        init_fn, update_fn = make_a2c(
+            hooks, A2CConfig(n_envs=args.n_envs, rollout_len=args.rollout, lr=args.lr),
+            device=args.device)
+    elif args.algorithm == "dqn":
+        from balatro_gym_tpu_torch.train.dqn import DQNConfig, make_dqn
+
+        init_fn, update_fn = make_dqn(
+            hooks, DQNConfig(n_envs=args.n_envs, lr=args.lr, steps_per_update=args.rollout),
+            device=args.device)
+    else:
+        init_fn, update_fn, _ = make_ppo(hooks, cfg, device=args.device)
     wandb_run = None
     if args.wandb:
         try:
@@ -114,7 +132,7 @@ def main(argv=None) -> dict:
     if args.resume:
         ts = restore_train_state(args.resume, ts)
         print(f"resumed from {args.resume} at update {ts.update_idx}", flush=True)
-    on_card = ts.ret_carry.device.type == "cuda"
+    on_card = run_device((), args.device).type == "cuda"
 
     t0 = time.perf_counter()
     metrics = {}

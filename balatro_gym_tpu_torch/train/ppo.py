@@ -179,15 +179,22 @@ def linear_schedule(init: float, end: float, steps: int):
     return lr
 
 
+def clip_by_global_norm(grads, max_norm: float):
+    """``optax.clip_by_global_norm``: the gradients scaled by ``max_norm /
+    norm`` where their global norm is not below ``max_norm`` (a select, no
+    host sync)."""
+    g_norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    keep = g_norm < max_norm
+    return [torch.where(keep, g, g / g_norm * max_norm) for g in grads]
+
+
 def adam_update(params, grads, st: AdamState, lr: float, max_norm: float | None,
                 b1=0.9, b2=0.999, eps=1e-5) -> AdamState:
     """One step of ``chain(clip_by_global_norm(max_norm), adam(lr, eps))``,
     or of plain ``adam(lr, eps)`` with ``max_norm=None``: the parameters
     change in place; returns the new state."""
     if max_norm is not None:
-        g_norm = torch.sqrt(sum((g * g).sum() for g in grads))
-        keep = g_norm < max_norm
-        grads = [torch.where(keep, g, g / g_norm * max_norm) for g in grads]
+        grads = clip_by_global_norm(grads, max_norm)
     count = st.count + 1
     bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
     bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
@@ -200,6 +207,36 @@ def adam_update(params, grads, st: AdamState, lr: float, max_norm: float | None,
             mus.append(mu)
             nus.append(nu)
     return AdamState(count, mus, nus)
+
+
+@dataclasses.dataclass
+class RMSPropState:
+    """optax's ``rmsprop`` state: the second moments ``nu``, one tensor per
+    parameter in :func:`param_list` order."""
+
+    nu: list
+
+
+def rmsprop_init(params) -> RMSPropState:
+    return RMSPropState([torch.zeros_like(p) for p in params])
+
+
+def rmsprop_update(params, grads, st: RMSPropState, lr: float, max_norm: float | None,
+                   decay: float = 0.99, eps: float = 1e-5) -> RMSPropState:
+    """One step of ``chain(clip_by_global_norm(max_norm), rmsprop(lr,
+    decay, eps))`` as optax 0.2.6 defines it (``eps_in_sqrt=True``, no
+    bias correction, ``nu`` starting at 0): ``nu = (1 - decay) * g**2 +
+    decay * nu``, then ``p -= lr * g * rsqrt(nu + eps)``. The parameters
+    change in place; returns the new state."""
+    if max_norm is not None:
+        grads = clip_by_global_norm(grads, max_norm)
+    nus = []
+    with torch.no_grad():
+        for p, g, nu in zip(params, grads, st.nu):
+            nu = (1 - decay) * (g * g) + decay * nu
+            p.add_((-lr) * (torch.rsqrt(nu + eps) * g))
+            nus.append(nu)
+    return RMSPropState(nus)
 
 
 # ---------------------------------------------------------------------------
@@ -547,35 +584,45 @@ def load_reference_state(hooks: EnvHooks, cfg: PPOConfig, ref: dict, *, device=N
     words), ``update_idx`` and ``env_states``: the packed rows ``{"cards",
     "ints", "rng"}`` of ``pack_full_state`` for the flagship env, else the
     SimEnvState's fields."""
-    from balatro_gym_tpu_torch.ops import fused_full_rollout as FF
-    from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
     _check(hooks, cfg)
     dev = run_device((), device)
     net = load_flax_params(_make_net(hooks, cfg, None), ref["params"]).to(dev)
     mu, nu = (_flax_leaves(net, ref[k]) for k in ("mu", "nu"))
-    if hooks.obs_dim == FP.OBS_DIM:
-        env = ref["env_states"]
-        env_states = {
-            "cards": torch.as_tensor(np.asarray(env["cards"], np.int32), device=dev),
-            "ints": torch.as_tensor(np.asarray(env["ints"], np.int32), device=dev),
-            "rng": torch.as_tensor(np.asarray(env["rng"]).astype(np.uint32).view(np.int32),
-                                   device=dev)}
-        if not cfg.fused_rollout:
-            env_states = FF.unpack_full_state(env_states)
-    else:
-        from balatro_gym_tpu_torch.engine import sim_env
-        env_states = sim_env.state_from_numpy(ref["env_states"], device=dev)
-
-    def stats(t):
-        return RunningStats(*(torch.tensor(np.asarray(x, np.float32), device=dev) for x in t))
-
     return TrainState(
         params=net, opt_state=AdamState(int(ref["count"]), [m.to(dev) for m in mu],
                                         [v.to(dev) for v in nu]),
-        env_states=env_states, key=tuple(int(w) for w in np.asarray(ref["key"])),
-        update_idx=int(ref["update_idx"]), obs_stats=stats(ref["obs_stats"]),
-        ret_stats=stats(ref["ret_stats"]),
+        env_states=reference_env_states(hooks, ref["env_states"], dev,
+                                        packed=cfg.fused_rollout),
+        key=reference_key(ref["key"]), update_idx=int(ref["update_idx"]),
+        obs_stats=reference_stats(ref["obs_stats"], dev),
+        ret_stats=reference_stats(ref["ret_stats"], dev),
         ret_carry=torch.tensor(np.asarray(ref["ret_carry"], np.float32), device=dev))
+
+
+def reference_env_states(hooks: EnvHooks, env, dev, packed: bool = False):
+    """A reference's batched env state, as numpy arrays, as the port's: the
+    flagship env's packed rows ``{"cards", "ints", "rng"}`` (unpacked into
+    a ``FullEnvState`` unless ``packed``), else the SimEnvState's fields."""
+    from balatro_gym_tpu_torch.ops import fused_full_rollout as FF
+    from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
+    if hooks.obs_dim != FP.OBS_DIM:
+        from balatro_gym_tpu_torch.engine import sim_env
+        return sim_env.state_from_numpy(env, device=dev)
+    rows = {"cards": torch.as_tensor(np.asarray(env["cards"], np.int32), device=dev),
+            "ints": torch.as_tensor(np.asarray(env["ints"], np.int32), device=dev),
+            "rng": torch.as_tensor(np.asarray(env["rng"]).astype(np.uint32).view(np.int32),
+                                   device=dev)}
+    return rows if packed else FF.unpack_full_state(rows)
+
+
+def reference_key(key) -> tuple:
+    """``jax.random.key_data`` of one key as the port's pair of words."""
+    return tuple(int(w) for w in np.asarray(key))
+
+
+def reference_stats(t, dev) -> RunningStats:
+    """A reference's ``(mean, var, count)`` running statistics."""
+    return RunningStats(*(torch.tensor(np.asarray(x, np.float32), device=dev) for x in t))
 
 
 def train(num_updates: int = 16, cfg: PPOConfig | None = None, seed: int = 0,

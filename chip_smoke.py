@@ -168,10 +168,32 @@ non-zero:
     against tests/fixtures/expert_regression.json (ints exact, floats within
     1e-4); and a fused ``fast_decay`` update at 8192 x 128 saved, restored
     into another state (``utils.checkpoint``) and the next update equal to
-    the uninterrupted one bit for bit.
+    the uninterrupted one bit for bit;
+23. other learners and the macro shell: ``train.a2c.make_a2c`` at
+    ``A2CConfig(n_envs=8192)`` (rollout 5, ``ActorCritic(256, 256)``) on
+    the flagship env for 3 updates, the launch counters reset before and
+    read after (K3b 2 a step and 2 for the last value, ``env_step_kernel``
+    1 a step), against the same updates over the kernels' plain versions
+    on the card (masks, actions, rewards, dones and env states bit for
+    bit, the normalised observation but its log1p row bit for bit and that
+    row within 1e-5, parameters and RMSprop's ``nu`` within 1e-6);
+    ``train.dqn.make_dqn`` at ``DQNConfig(n_envs=8192,
+    steps_per_update=4)`` (100,000-transition ring, batch 512,
+    ``QNetwork(256, 256)``) for 4 updates, the fourth wrapping the ring to
+    ``buf_ptr`` 31,072 at ``buf_len`` 100,000 (K3b 4 a step,
+    ``env_step_kernel`` 1 a step), against the plain versions likewise
+    (the ring bit for bit but the observations' log1p row, within 1 ulp;
+    parameters within 1e-6); each update's time by CUDA events and the
+    card's idle share by the profiler; ``envs.macro_env`` at 8192 envs for
+    64 steps of seeded random legal actions on the card against the same
+    on the CPU (every field, reward and observation exact), its
+    ``BalatroMacroGymEnv`` for 100 steps on the card against the CPU's;
+    and ``train.tune.tune`` at 2 trials x 2 updates of 1024 envs on the
+    flagship env (``backend`` random-search, each trial's parameters
+    ``_sample(random.Random(0))``'s).
 
 Float32 matmuls run in full float32 (``allow_tf32`` stays False). The last
-four lines are the trainer's JSON record, that of phases 19-22, the
+four lines are the trainer's JSON record, that of phases 19-23, the
 kernels' JSON record (each kernel's bound under both INT32 rates) and the
 result line.
 Imports torch and the port only; the machine with the card has no JAX.
@@ -180,6 +202,7 @@ from __future__ import annotations
 
 import copy
 import json
+import random
 import re
 import statistics
 import subprocess
@@ -194,7 +217,8 @@ import torch
 from balatro_gym_tpu_torch.core.constants import Phase
 from balatro_gym_tpu_torch.engine import full_env as FE
 from balatro_gym_tpu_torch.engine import sim_env
-from balatro_gym_tpu_torch.envs import BalatroEnvValidator, BalatroGymEnv
+from balatro_gym_tpu_torch.envs import BalatroEnvValidator, BalatroGymEnv, BalatroMacroGymEnv
+from balatro_gym_tpu_torch.envs import macro_env as ME
 from balatro_gym_tpu_torch.ops import alu_ceiling as AC
 from balatro_gym_tpu_torch.ops import cuda_build
 from balatro_gym_tpu_torch.ops import fused_full_battery as BAT
@@ -203,11 +227,14 @@ from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
 from balatro_gym_tpu_torch.ops import fused_rollout as FR
 from balatro_gym_tpu_torch.ops import hand_histograms as HH
 from balatro_gym_tpu_torch.ops import kernel_rng as KR
+from balatro_gym_tpu_torch.train import a2c as TA
 from balatro_gym_tpu_torch.train import bc as BC
+from balatro_gym_tpu_torch.train import dqn as TD
 from balatro_gym_tpu_torch.train import evaluate as EV
 from balatro_gym_tpu_torch.train import expert as EX
 from balatro_gym_tpu_torch.train import ppo as TP
 from balatro_gym_tpu_torch.train import trajectories as TJ
+from balatro_gym_tpu_torch.train import tune as TT
 from balatro_gym_tpu_torch.train.networks import ActorCritic
 from balatro_gym_tpu_torch.train.normalize import init_stats, normalize
 from balatro_gym_tpu_torch.utils.checkpoint import restore_train_state, save_train_state
@@ -252,6 +279,13 @@ BC_ENVS, BC_UPDATES = 8192, 3
 EXPERT_ENVS, EXPERT_STEPS = 8192, 64
 EXPERT_FIXTURE = Path(__file__).resolve().parent / "tests" / "fixtures" / "expert_regression.json"
 FIXTURE_ATOL = 1e-4     # the fixture's float64 rewards against the float32 engine's
+# Phase 23: A2C and DQN at 8192 envs on the flagship env with their default
+# nets, the macro env at 8192 envs, the search at 1024
+A2C_ENVS, A2C_UPDATES = 8192, 3
+DQN_ENVS, DQN_UPDATES, DQN_STEPS = 8192, 4, 4
+MACRO_ENVS, MACRO_STEPS, MACRO_SHELL_STEPS = 8192, 64, 100
+TUNE_TRIALS, TUNE_UPDATES, TUNE_ENVS = 2, 2, 1024
+NORM_LOG1P_ATOL = 1e-5  # A2C's normalised log1p row: its statistics read the 1-ulp row
 # K2's and K3a's ptxas lines as phase 2 printed them before the engine's
 # step kernel joined their step (NVIDIA H100 80GB HBM3, CUDA 12.9). Phase 18
 # prints today's beside them and says whether they are equal; it does not
@@ -1639,6 +1673,231 @@ def phase_imitation(smi):
             "wall_s": wall, "gpu": smi}
 
 
+def timed_updates(update_fn, ts, plain_update, tp, updates, compare):
+    """``updates`` updates through the kernels, each timed by CUDA events
+    and followed by the same update over the plain versions, which
+    ``compare(u, card record, plain record, card state, plain state)``
+    holds against it. Returns (state, plain state, ms samples, metrics)."""
+    times, hist = [], []
+    for u in range(updates):
+        rk, rp = {}, {}
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        ts, m = update_fn(ts, record=rk)
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+        hist.append({k: float(v) for k, v in m.items()})
+        tp, _ = plain_update(tp, record=rp)
+        compare(u, rk, rp, ts, tp)
+    return ts, tp, times, hist
+
+
+def max_param_diff(a, b):
+    return max(float((x.detach() - y.detach()).abs().max()) for x, y in zip(a, b))
+
+
+def idle_of(update_fn, ts, upd_ms):
+    """(card ms of one more update by the profiler, its idle share of the
+    unprofiled update's time, the profiled update's own idle share)."""
+    state = {"ts": ts}
+
+    def one():
+        state["ts"], _ = update_fn(state["ts"])
+
+    idle_prof, by_name = card_profile(one)
+    card_ms = sum(map(sum, by_name.values())) if by_name else None
+    return card_ms, None if card_ms is None else max(0.0, 1.0 - card_ms / upd_ms), idle_prof
+
+
+def phase_other_learners(smi):
+    """A2C and DQN on the flagship env against the same updates over the
+    plain versions, the macro env and shell on the card against the CPU,
+    and the hyperparameter search."""
+    t_phase = time.perf_counter()
+    key = [int(w) for w in KR.seed_key(0, device="cpu")]
+    other = torch.arange(FP.OBS_DIM, device=DEV) != LOG1P_ROW
+
+    # A2C
+    cfg = TA.A2CConfig(n_envs=A2C_ENVS)
+    init_fn, update_fn = TA.make_a2c(TP.full_env_hooks(), cfg, device=DEV)
+    _, plain_update = TA.make_a2c(plain_engine_hooks(), cfg, device=DEV)
+    ts = init_fn(key)
+    a2c_err = {"obs_log1p": 0.0, "params": 0.0, "nu": 0.0}
+
+    def a2c_compare(u, rk, rp, ts, tp):
+        for k in ("mask", "action", "reward", "done"):
+            assert torch.equal(rk[k], rp[k]), f"A2C update {u}: {k}"
+        assert torch.equal(rk["obs"][..., other], rp["obs"][..., other]), f"A2C update {u}: obs"
+        a2c_err["obs_log1p"] = max(a2c_err["obs_log1p"], float((rk["obs"] - rp["obs"]).abs().max()))
+        bad = FF.states_equal(ts.env_states, tp.env_states)
+        assert bad == [], f"A2C update {u}: env state fields differ: {bad}"
+        a2c_err["params"] = max(a2c_err["params"], max_param_diff(
+            TP.param_list(ts.params), TP.param_list(tp.params)))
+        a2c_err["nu"] = max(a2c_err["nu"], max_param_diff(ts.opt_state.nu, tp.opt_state.nu))
+
+    FP.observe_fused.launches = FP.env_step_fused.launches = 0
+    FP.step_fused.launches = FP.sample_fused.launches = 0
+    ts, _, a2c_times, a2c_hist = timed_updates(update_fn, ts, plain_update, copy.deepcopy(ts),
+                                               A2C_UPDATES, a2c_compare)
+    a2c_launches = generic_counts()
+    T = cfg.rollout_len
+    want = {"env_step": A2C_UPDATES * T, "K3b": A2C_UPDATES * (2 * T + 2), "K3a": 0, "sampler": 0}
+    assert a2c_launches == want, (a2c_launches, want)
+    assert a2c_err["obs_log1p"] <= NORM_LOG1P_ATOL, a2c_err
+    assert a2c_err["params"] <= PARAM_ATOL and a2c_err["nu"] <= PARAM_ATOL, a2c_err
+    assert all(np.isfinite(v) for m in a2c_hist for v in m.values()), a2c_hist
+    a2c_ms = statistics.median(a2c_times)
+    a2c_card, a2c_idle, a2c_idle_prof = idle_of(update_fn, ts, a2c_ms)
+    del ts
+
+    # DQN: the fourth update wraps the ring
+    dcfg = TD.DQNConfig(n_envs=DQN_ENVS, steps_per_update=DQN_STEPS)
+    init_fn, update_fn = TD.make_dqn(TP.full_env_hooks(), dcfg, device=DEV)
+    _, plain_update = TD.make_dqn(plain_engine_hooks(), dcfg, device=DEV)
+    ts = init_fn(key)
+    dqn_err = {"obs_log1p_entries": 0, "params": 0.0, "target": 0.0}
+
+    def dqn_compare(u, rk, rp, ts, tp):
+        for k in ("action", "reward", "done", "sample"):
+            assert torch.equal(rk[k], rp[k]), f"DQN update {u}: {k}"
+        assert rk["ready"] == rp["ready"] and (ts.buf_ptr, ts.buf_len) == (tp.buf_ptr, tp.buf_len)
+        for name in ("buf_obs", "buf_next_obs"):
+            dqn_err["obs_log1p_entries"] += obs_diff(getattr(ts, name), getattr(tp, name))[1]
+        for name in ("buf_action", "buf_reward", "buf_next_mask", "buf_done"):
+            assert torch.equal(getattr(ts, name), getattr(tp, name)), f"DQN update {u}: {name}"
+        assert FF.states_equal(ts.env_states, tp.env_states) == [], f"DQN update {u}"
+        dqn_err["params"] = max(dqn_err["params"], max_param_diff(
+            TP.param_list(ts.params), TP.param_list(tp.params)))
+        dqn_err["target"] = max(dqn_err["target"], max_param_diff(
+            TP.param_list(ts.target_params), TP.param_list(tp.target_params)))
+
+    FP.observe_fused.launches = FP.env_step_fused.launches = 0
+    FP.step_fused.launches = FP.sample_fused.launches = 0
+    ts, _, dqn_times, dqn_hist = timed_updates(update_fn, ts, plain_update, copy.deepcopy(ts),
+                                               DQN_UPDATES, dqn_compare)
+    dqn_launches = generic_counts()
+    want = {"env_step": DQN_UPDATES * DQN_STEPS, "K3b": DQN_UPDATES * 4 * DQN_STEPS,
+            "K3a": 0, "sampler": 0}
+    assert dqn_launches == want, (dqn_launches, want)
+    ring = (ts.buf_ptr, ts.buf_len)
+    assert ring == (DQN_UPDATES * DQN_STEPS * DQN_ENVS % dcfg.buffer_size, dcfg.buffer_size), ring
+    assert ts.opt_state.count == DQN_UPDATES, ts.opt_state.count
+    assert dqn_err["params"] <= PARAM_ATOL and dqn_err["target"] <= PARAM_ATOL, dqn_err
+    assert all(np.isfinite(v) for m in dqn_hist for v in m.values()), dqn_hist
+    dqn_ms = statistics.median(dqn_times)
+    dqn_card, dqn_idle, dqn_idle_prof = idle_of(update_fn, ts, dqn_ms)
+    del ts
+
+    # the macro env: the card against the CPU, step by step
+    t0 = time.perf_counter()
+    keys = torch.stack(KR.split_child(torch.tensor(0), torch.tensor(23),
+                                      torch.arange(MACRO_ENVS)), -1)
+    sc, sk = ME.reset(keys), ME.reset(keys.to(DEV))
+    g = torch.Generator().manual_seed(23)
+    step_ms, rewards, ends = [], 0.0, 0
+    for t in range(MACRO_STEPS):
+        mask = ME.action_mask(sc)
+        assert torch.equal(ME.action_mask(sk).cpu(), mask), f"macro step {t}: mask"
+        # a done env (past ante 8) has no legal action and stays as it is
+        a = torch.multinomial(mask.float() + ~mask.any(1, keepdim=True), 1,
+                              generator=g)[:, 0].to(torch.int32)
+        ak = a.to(DEV)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        sk, rk, dk = ME.step(sk, ak)
+        e1.record()
+        sc, rc, dc = ME.step(sc, a)
+        e1.synchronize()
+        step_ms.append(e0.elapsed_time(e1))
+        assert torch.equal(rk.cpu(), rc) and torch.equal(dk.cpu(), dc), f"macro step {t}"
+        for name, v in vars(sc).items():
+            assert torch.equal(getattr(sk, name).cpu(), v), f"macro step {t}: {name}"
+        ok = ME.observe(sk)
+        for name, v in ME.observe(sc).items():
+            assert torch.equal(ok[name].cpu(), v), f"macro step {t}: observation {name}"
+        rewards += float(rc.sum())
+        ends += int(dc.sum())
+    macro_wall = time.perf_counter() - t0
+    macro_ante = int(sc.ante.max())
+    card_shell, cpu_shell = BalatroMacroGymEnv(seed=23), BalatroMacroGymEnv(seed=23, device="cpu")
+    (o, _), (oc, _) = card_shell.reset(), cpu_shell.reset()
+    rng = np.random.default_rng(23)
+    shell_ends = 0
+    for t in range(MACRO_SHELL_STEPS):
+        assert o.keys() == oc.keys() and all(
+            o[k].dtype == oc[k].dtype and np.array_equal(o[k], oc[k]) for k in o), t
+        act = int(rng.choice(np.flatnonzero(o["action_mask"])))
+        o, r, d, _, _ = card_shell.step(act)
+        oc, rc_, dc_, _, _ = cpu_shell.step(act)
+        assert (r, d) == (rc_, dc_), (t, r, rc_)
+        if d:
+            shell_ends += 1
+            (o, _), (oc, _) = card_shell.reset(), cpu_shell.reset()
+
+    # the search: random search, each trial's parameters recorded
+    t0 = time.perf_counter()
+    seen, sample = [], TT._sample
+    TT._sample = lambda r: seen.append(sample(r)) or seen[-1]
+    try:
+        tune_out = TT.tune(TUNE_TRIALS, "full", TUNE_UPDATES, TUNE_ENVS)
+    finally:
+        TT._sample = sample
+    tune_s = time.perf_counter() - t0
+    ref = random.Random(0)
+    assert tune_out["backend"] == "random-search" and tune_out["trials"] == TUNE_TRIALS
+    assert seen == [sample(ref) for _ in range(TUNE_TRIALS)], seen
+    assert np.isfinite(tune_out["best_value"]) and tune_out["best_params"] in seen
+
+    wall = time.perf_counter() - t_phase
+
+    def idle_text(card_ms, idle, idle_prof):
+        return ("card time not measured (no card activity in the profile)" if card_ms is None
+                else f"card {card_ms:.3f} ms (profiler), idle share {idle:.4f} of the unprofiled "
+                     f"update ({idle_prof:.4f} of the profiled one)")
+
+    log("23 other learners and macro", f"ok: A2C {A2C_ENVS}x{T} ActorCritic(256, 256), "
+        f"{A2C_UPDATES} updates, launches={a2c_launches} (K3b 2 a step + 2, env_step 1 a step) "
+        f"== the plain versions on the card (masks, actions, rewards, dones, env states bit for "
+        f"bit; normalised log1p row within {a2c_err['obs_log1p']:.3g}; params within "
+        f"{a2c_err['params']:.3g}, nu within {a2c_err['nu']:.3g}); update median {a2c_ms:.3f} "
+        f"ms (CUDA events; samples {', '.join(f'{x:.3f}' for x in a2c_times)}), "
+        f"{idle_text(a2c_card, a2c_idle, a2c_idle_prof)}; DQN {DQN_ENVS}x{DQN_STEPS}, ring "
+        f"{dcfg.buffer_size}, QNetwork(256, 256), {DQN_UPDATES} updates, launches={dqn_launches}"
+        f" (K3b 4 a step, env_step 1 a step); ring wrapped to ptr {ring[0]} len {ring[1]}; == "
+        f"the plain versions (ring bit for bit, {dqn_err['obs_log1p_entries']} log1p entries 1 "
+        f"ulp apart; params within {dqn_err['params']:.3g}, target within "
+        f"{dqn_err['target']:.3g}); update median {dqn_ms:.3f} ms (samples "
+        f"{', '.join(f'{x:.3f}' for x in dqn_times)}), {idle_text(dqn_card, dqn_idle, dqn_idle_prof)}"
+        f"; macro env {MACRO_ENVS}x{MACRO_STEPS} random legal steps on the card == the CPU "
+        f"(every field, reward and observation), card step median "
+        f"{statistics.median(step_ms):.3f} ms (CUDA events), {ends} episodes ended, max ante "
+        f"{macro_ante}, {macro_wall:.1f} s for both; BalatroMacroGymEnv {MACRO_SHELL_STEPS} steps "
+        f"on the card == the CPU's ({shell_ends} episodes); tune {TUNE_TRIALS} trials x "
+        f"{TUNE_UPDATES} updates at {TUNE_ENVS} envs (full) {tune_s:.1f} s: {tune_out}; "
+        f"{wall:.1f} s [{smi}]")
+    return {"a2c": {"config": {"n_envs": A2C_ENVS, "rollout_len": T, "hidden": list(cfg.hidden)},
+                    "updates": A2C_UPDATES, "launches_main_path": a2c_launches,
+                    "update_ms": a2c_ms, "update_ms_samples": a2c_times,
+                    "card_ms_per_update": a2c_card, "card_idle_share": a2c_idle,
+                    "card_idle_share_profiled": a2c_idle_prof, "plain_parity": a2c_err,
+                    "metrics_by_update": a2c_hist},
+            "dqn": {"config": {"n_envs": DQN_ENVS, "steps_per_update": DQN_STEPS,
+                               "buffer_size": dcfg.buffer_size, "batch_size": dcfg.batch_size,
+                               "hidden": list(dcfg.hidden)},
+                    "updates": DQN_UPDATES, "launches_main_path": dqn_launches,
+                    "ring_ptr_len": list(ring), "update_ms": dqn_ms,
+                    "update_ms_samples": dqn_times, "card_ms_per_update": dqn_card,
+                    "card_idle_share": dqn_idle, "card_idle_share_profiled": dqn_idle_prof,
+                    "plain_parity": dqn_err, "metrics_by_update": dqn_hist},
+            "macro": {"envs": MACRO_ENVS, "steps": MACRO_STEPS,
+                      "card_step_ms": statistics.median(step_ms), "card_step_ms_samples": step_ms,
+                      "episodes": ends, "max_ante": macro_ante, "wall_s": macro_wall,
+                      "shell_steps": MACRO_SHELL_STEPS},
+            "tune": {**tune_out, "updates": TUNE_UPDATES, "envs": TUNE_ENVS, "wall_s": tune_s},
+            "wall_s": wall, "gpu": smi}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
@@ -1665,6 +1924,7 @@ def main():
     ev = phase_evaluate(smi, g_ts)
     gym = phase_gym(smi)
     imitation = phase_imitation(smi)
+    learners = phase_other_learners(smi)
 
     # (bytes, integer operations) of each kernel's measured call
     work = {"fused_rollout": (N_ENVS * ((FR.N_SCAL + 32 + 32 + 64) * 4
@@ -1719,12 +1979,16 @@ def main():
     kernels[-3]["card_idle_share_profiled"] = pt["idle_profiled"]
     kernels[-2]["generic_launches"] = generic["launches_main_path"]["K3b"]
     kernels[-2]["imitation_launches"] = imitation["bc"]["launches_main_path"]["K3b"]
+    kernels[-2]["a2c_launches"] = learners["a2c"]["launches_main_path"]["K3b"]
+    kernels[-2]["dqn_launches"] = learners["dqn"]["launches_main_path"]["K3b"]
     kernels.append({
         "name": "env_step", "route": "cuda", "source": policy_src,
         "replaces": "balatro_gym_tpu/engine/full_env.py:870",
         "replaces_note": "the engine's step, XLA in the reference: no Pallas kernel",
         "launches": generic["launches_main_path"]["env_step"],
         "imitation_launches": imitation["bc"]["launches_main_path"]["env_step"],
+        "a2c_launches": learners["a2c"]["launches_main_path"]["env_step"],
+        "dqn_launches": learners["dqn"]["launches_main_path"]["env_step"],
         "max_abs_err": es["max_abs_err"], "ms": es["ms"], "ms_from": "events behind a sleep",
         "plain_ms": es["plain_ms"], "call_ms": es["call_ms"],
         "step_autoreset_call_ms": es["step_autoreset_call_ms"],
@@ -1771,7 +2035,7 @@ def main():
                "parity_metrics_max_rel_diff": parity["metrics_rel"], **tt, "gpu": smi}
     print(json.dumps({"trainer": trainer}), flush=True)
     print(json.dumps({"generic_trainer": generic, "evaluate": ev, "gym": gym,
-                      "imitation": imitation}), flush=True)
+                      "imitation": imitation, "other_learners": learners}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@ restore, and the next update equals the uninterrupted one bit for bit:
 the parameters, Adam's moments, both running statistics, the return carry,
 every env state and the key. Held for the three learners: the sim env's,
 the flagship env's over the generic rollout (a ``FullEnvState``) and over
-the fused collection (packed rows), each at a tiny size.
+the fused collection (packed rows), each at a tiny size; and for A2C and
+DQN (RMSprop's moments; the target network and the replay ring with its
+pointer and length) on both envs.
 """
 import copy
 import dataclasses
@@ -17,7 +19,9 @@ import pytest
 import torch
 
 from balatro_gym_tpu_torch.ops import kernel_rng as KR
+from balatro_gym_tpu_torch.train import a2c as TA
 from balatro_gym_tpu_torch.train import cli as TCLI
+from balatro_gym_tpu_torch.train import dqn as TD
 from balatro_gym_tpu_torch.train import ppo as TP
 from balatro_gym_tpu_torch.utils.checkpoint import restore_train_state, save_train_state
 
@@ -87,6 +91,44 @@ def test_resume_gives_the_uninterrupted_update(name, tmp_path):
     assert want <= env_keys, env_keys
 
 
+OTHER = {
+    "a2c": lambda hooks: TA.make_a2c(hooks, TA.A2CConfig(n_envs=16, rollout_len=3,
+                                                         hidden=(32,)), device="cpu"),
+    # the ring wraps in the second update; the target syncs every update
+    "dqn": lambda hooks: TD.make_dqn(hooks, TD.DQNConfig(
+        n_envs=16, buffer_size=40, batch_size=8, learning_starts=16, steps_per_update=2,
+        target_update_every=1, hidden=(32,)), device="cpu"),
+}
+
+
+@pytest.mark.parametrize("env_name", ["sim", "full"])
+@pytest.mark.parametrize("learner", list(OTHER))
+def test_other_learners_resume_bit_for_bit(learner, env_name, tmp_path):
+    hooks = TP.sim_env_hooks() if env_name == "sim" else TP.full_env_hooks()
+    init_fn, update_fn = OTHER[learner](hooks)
+    ts, _ = update_fn(init_fn((0, 5)))
+    save_train_state(tmp_path / "saved", ts)
+    restored = restore_train_state(tmp_path / "saved", init_fn((0, 6)))
+    save_train_state(tmp_path / "restored", restored)
+    assert_snapshots_equal(snapshot(tmp_path / "restored"), snapshot(tmp_path / "saved"))
+    assert restored.update_idx == 1 and restored.key == ts.key
+    cont, m_cont = update_fn(ts)
+    res, m_res = update_fn(restored)
+    save_train_state(tmp_path / "cont", cont)
+    save_train_state(tmp_path / "res", res)
+    assert_snapshots_equal(snapshot(tmp_path / "cont"), snapshot(tmp_path / "res"))
+    for k in m_cont:
+        assert (torch.equal(m_cont[k], m_res[k]) if torch.is_tensor(m_cont[k])
+                else m_cont[k] == m_res[k]), k
+    flat = snapshot(tmp_path / "cont")
+    if learner == "dqn":
+        assert flat["ts.buf_ptr"] == 24 and flat["ts.buf_len"] == 40
+        assert {"ts.buf_obs", "ts.buf_next_mask", "ts.buf_done"} <= flat.keys()
+        assert any(k.startswith("ts.target_params.") for k in flat)
+    else:
+        assert {"ts.opt_state.nu.0", "ts.obs_stats.mean"} <= flat.keys()
+
+
 def test_restore_rejects_another_structure(tmp_path):
     sim_init, sim_update, _ = TP.make_ppo(TP.sim_env_hooks(),
                                           TP.PPOConfig(**LEARNERS["sim"][1]), device="cpu")
@@ -125,6 +167,8 @@ CLI = {
              "--minibatches", "2", "--hidden", "32"],
     "fused": ["--env", "full", "--fused-rollout", "--n-envs", "64", "--rollout", "2",
               "--epochs", "1", "--minibatches", "2", "--hidden", "32"],
+    "a2c": ["--algorithm", "a2c", "--env", "full", "--n-envs", "16", "--rollout", "3"],
+    "dqn": ["--algorithm", "dqn", "--env", "sim", "--n-envs", "16", "--rollout", "2"],
 }
 
 

@@ -594,9 +594,9 @@ def test_cli_trains_and_writes_the_summary(tmp_path):
     assert [ln.get("update") for ln in lines[:2]] == [1, 2]
 
 
+# the id the case had beside the A2C and DQN cases, which now train (below)
 @pytest.mark.parametrize("argv,item", [
-    (["--algorithm", "a2c"], "queue 1 item 9"), (["--algorithm", "dqn"], "queue 1 item 9"),
-    (["--distributed"], "queue 1 item 10")])
+    pytest.param(["--distributed"], "queue 1 item 10", id="argv2-queue 1 item 10")])
 def test_cli_unsupported_options_exit_with_their_roadmap_item(argv, item):
     with pytest.raises(SystemExit) as exc:
         TCLI.main(argv + ["--device", "cpu", "--updates", "1", "--summary", ""])
@@ -611,6 +611,30 @@ def test_cli_full_env_trains_without_the_fused_rollout():
     assert set(got) == SUMMARY_KEYS and got["env"] == "full"
     assert got["total_env_steps"] == 16 * 4 and set(got["final_metrics"]) == set(METRICS)
     assert all(np.isfinite(v) for v in got["final_metrics"].values())
+
+
+@pytest.mark.parametrize("algorithm", ["a2c", "dqn"])
+@pytest.mark.parametrize("env_name", ["sim", "full"])
+def test_cli_other_learners_train(algorithm, env_name, tmp_path, capsys):
+    """``--algorithm a2c|dqn`` trains on either env (the learners' own
+    defaults, as the reference's CLI builds them) and writes the
+    reference's summary keys and metric lines, the rate counted from
+    ``n_envs * rollout``."""
+    summary = tmp_path / "summary.json"
+    got = TCLI.main(["--algorithm", algorithm, "--env", env_name, "--updates", "2",
+                     "--n-envs", "16", "--rollout", "3", "--log-every", "1", "--device", "cpu",
+                     "--summary", str(summary)])
+    assert set(got) == SUMMARY_KEYS and json.loads(summary.read_text()) == got
+    assert (got["algorithm"], got["env"]) == (algorithm, env_name)
+    assert got["total_env_steps"] == 2 * 16 * 3 and got["n_devices"] == 1
+    want = ({"loss", "pg_loss", "vf_loss", "entropy", "mean_reward", "episodes"}
+            if algorithm == "a2c" else {"loss", "epsilon", "buffer", "mean_reward", "episodes"})
+    assert set(got["final_metrics"]) == want
+    assert all(np.isfinite(v) for v in got["final_metrics"].values())
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
+    assert [ln.get("update") for ln in lines[:2]] == [1, 2]
+    if algorithm == "dqn":
+        assert got["final_metrics"]["buffer"] == 2 * 3 * 16
 
 
 SUMMARY_KEYS = {"algorithm", "env", "total_env_steps", "wall_seconds", "steps_per_second",
