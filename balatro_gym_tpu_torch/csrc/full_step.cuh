@@ -823,9 +823,20 @@ __device__ void shop_gen(State& s, TfKey key, float mult) {
   s.sn = 9;
 }
 
+// A shop generation that step has still to run: its key and cost
+// multiplier (see ShopJoin in step).
+struct PendingShop {
+  bool on;
+  TfKey key;
+  float mult;
+};
+
 // Beat or skip a blind: gold-card and boss money, ante/round, round money,
-// fresh hands and shop (frozen past ante 100).
-__device__ void advance(State& s, const float* ft) {
+// fresh hands and shop (frozen past ante 100). kJoin: the shop generation
+// is left in `later` for step to run; no field it writes is read or
+// written by the rest of advance.
+template <bool kJoin = false>
+__device__ void advance(State& s, const float* ft, PendingShop* later = nullptr) {
   int gold = 0;
   for (int p = 0; p < kHand && p < s.hn; ++p) gold += s.hen[p] == ENH_GOLD;
   s.money += gold * 3 + (s.bact ? 5 : 0);
@@ -845,7 +856,8 @@ __device__ void advance(State& s, const float* ft) {
   s.fd = 0;
   if (over) return;
   const float mult = cost_mult(s, new_ante, ft);
-  shop_gen(s, next_key(s, ST_SHOP_GEN), mult);
+  if constexpr (kJoin) *later = {true, next_key(s, ST_SHOP_GEN), mult};
+  else shop_gen(s, next_key(s, ST_SHOP_GEN), mult);
   s.hl = 4;
   s.dl = 3;
   s.phase = PH_SHOP;
@@ -989,44 +1001,10 @@ __device__ __forceinline__ void deal(State& s, int d, uint32_t w) {
   s.en[d] = s.ed[d] = s.sl[d] = 0;
 }
 
-// Fresh episode: key folded with the step count, the deck shuffled by
-// sorting 52 packed priority words with Batcher's odd-even merge network.
-// kUnrolled sorts in registers (merge_stages): K3a's form, since a launch
-// lasts as long as its slowest warp, and the loops below over a local v
-// made a K3a launch in which any env resets ~100 us longer on an H100
-// (PERF.md). K2 keeps the loops: at its 64 registers the unrolled form
-// made its 131072-env rollout 3% slower there.
-template <bool kUnrolled>
-__device__ void reset_state(State& s) {
-  s.key = tf_fold_in(s.key, (uint32_t)s.sc);
-  const TfKey dk = tf_fold_in(tf_fold_in(s.key, (uint32_t)ST_DECK), 0u);
-  uint32_t v[kDeck];
-  if constexpr (kUnrolled) {
-#pragma unroll
-    for (int c = 0; c < kDeck; ++c) v[c] = c < 52 ? deck_word(dk, c) : 0xFFFFFFFFu;
-    merge_stages<1, 1>(v);
-#pragma unroll
-    for (int d = 0; d < kDeck; ++d) deal(s, d, v[d]);
-  } else {
-    for (int c = 0; c < 52; ++c) v[c] = deck_word(dk, c);
-    for (int c = 52; c < kDeck; ++c) v[c] = 0xFFFFFFFFu;
-#pragma unroll 1
-    for (int p = 1; p < kDeck; p *= 2)
-#pragma unroll 1
-      for (int k = p; k >= 1; k /= 2)
-#pragma unroll 1
-        for (int j = k % p; j < kDeck - k; j += 2 * k)
-#pragma unroll 1
-          for (int i = 0; i < k && i < kDeck - j - k; ++i) {
-            const int x = i + j, y = i + j + k;
-            if (x / (p * 2) == y / (p * 2) && v[x] > v[y]) {
-              const uint32_t t = v[x];
-              v[x] = v[y];
-              v[y] = t;
-            }
-          }
-    for (int d = 0; d < kDeck; ++d) deal(s, d, v[d]);
-  }
+// Every field of a fresh episode but the key and the deck's card channels:
+// the 52 dealt slots alive, the rest of the game at its start. Both
+// shuffles end with it: reset_state's and the engine's (reset_deal).
+__device__ __forceinline__ void reset_fields(State& s) {
   s.al = (1ull << 52) - 1;
   s.ih = s.bp = 0;
   for (int p = 0; p < kHand; ++p) {
@@ -1065,22 +1043,146 @@ __device__ void reset_state(State& s) {
   s.sc = 0;
 }
 
+// Fresh episode: key folded with the step count, the deck shuffled by
+// sorting 52 packed priority words with Batcher's odd-even merge network.
+// kUnrolled sorts in registers (merge_stages): K3a's form, since a launch
+// lasts as long as its slowest warp, and the loops below over a local v
+// made a K3a launch in which any env resets ~100 us longer on an H100
+// (PERF.md). K2 keeps the loops: at its 64 registers the unrolled form
+// made its 131072-env rollout 3% slower there. This is the kernels' own
+// shuffle (PARITY #B8, #B16), not the engine's: see engine_shuffle_key.
+template <bool kUnrolled>
+__device__ void reset_state(State& s) {
+  s.key = tf_fold_in(s.key, (uint32_t)s.sc);
+  const TfKey dk = tf_fold_in(tf_fold_in(s.key, (uint32_t)ST_DECK), 0u);
+  uint32_t v[kDeck];
+  if constexpr (kUnrolled) {
+#pragma unroll
+    for (int c = 0; c < kDeck; ++c) v[c] = c < 52 ? deck_word(dk, c) : 0xFFFFFFFFu;
+    merge_stages<1, 1>(v);
+#pragma unroll
+    for (int d = 0; d < kDeck; ++d) deal(s, d, v[d]);
+  } else {
+    for (int c = 0; c < 52; ++c) v[c] = deck_word(dk, c);
+    for (int c = 52; c < kDeck; ++c) v[c] = 0xFFFFFFFFu;
+#pragma unroll 1
+    for (int p = 1; p < kDeck; p *= 2)
+#pragma unroll 1
+      for (int k = p; k >= 1; k /= 2)
+#pragma unroll 1
+        for (int j = k % p; j < kDeck - k; j += 2 * k)
+#pragma unroll 1
+          for (int i = 0; i < k && i < kDeck - j - k; ++i) {
+            const int x = i + j, y = i + j + k;
+            if (x / (p * 2) == y / (p * 2) && v[x] > v[y]) {
+              const uint32_t t = v[x];
+              v[x] = v[y];
+              v[y] = t;
+            }
+          }
+    for (int d = 0; d < kDeck; ++d) deal(s, d, v[d]);
+  }
+  reset_fields(s);
+}
+
+// The engine's shuffle (the port's full_env.reset): permutation(fold_in(
+// stream_key(key, deck_shuffle), 0), 52), as jax.random.permutation draws
+// it for 52 cards, one round: split that key, take child 1, draw its 32-bit
+// words 0-51, and sort the cards stably by word. Deck slot d gets the d-th
+// card in that order, card c being rank c % 13 + 2 and suit c / 13.
+// Child 1 of the split of the shuffle key: the key the 52 words come from.
+__device__ __forceinline__ TfKey engine_shuffle_key(TfKey key) {
+  return tf_split_child(tf_fold_in(tf_fold_in(key, (uint32_t)ST_DECK), 0u), 1u);
+}
+
+// The sort key of slot i of the 64 that a warp sorts: card i's word above
+// its index, so that equal words keep index order (a stable sort of the
+// words); the 12 pads sort last.
+__device__ __forceinline__ uint64_t engine_deck_key(TfKey sub, int i) {
+  return i < 52 ? ((uint64_t)tf_bits32(sub, (uint32_t)i) << 32) | (uint32_t)i : ~0ull;
+}
+
+// Compare-exchange l of stage (k, j) of the bitonic sort of 64 keys in v:
+// the pair (i, i + j), i the l-th index with bit j clear, ascending where
+// bit k of i is clear. Each of a stage's 32 pairs is one lane's.
+__device__ __forceinline__ void bitonic_pair(uint64_t* v, int l, int k, int j) {
+  const int i = ((l & ~(j - 1)) << 1) | (l & (j - 1));
+  const uint64_t a = v[i], b = v[i + j];
+  if ((a > b) == ((i & k) == 0)) {
+    v[i] = b;
+    v[i + j] = a;
+  }
+}
+
+// The bitonic sort of the 64 keys in v, ascending: its 21 stages in order,
+// each run by lanes(f), which calls f(l) for every lane l of the warp and
+// returns when all have run (one lane and a __syncwarp on the card, all 32
+// in turn on the host).
+template <typename Lanes>
+__device__ __forceinline__ void sort64(uint64_t* v, Lanes&& lanes) {
+  for (int k = 2; k <= kDeck; k *= 2)
+    for (int j = k / 2; j >= 1; j /= 2) lanes([=](int l) { bitonic_pair(v, l, k, j); });
+}
+
+// Lane l's deck slots of the engine's shuffle, l and l + 32, from the
+// sorted keys: the card of the slot's key, in deal's word form.
+__device__ __forceinline__ void reset_deal(State& s, const uint64_t* v, int l) {
+  for (int d = l; d < kDeck; d += 32) {
+    const uint32_t c = (uint32_t)v[d];
+    deal(s, d, ((c / 13u) << 4) | (c % 13u));
+  }
+}
+
+// The branches of step: an env's branch class is the branch its action
+// takes there, from its phase, the action, its legality and the over flags,
+// by step's own tests. env_step_kernel steps a block's envs in class order,
+// so that a warp runs few branches, not the union of its envs' branches.
+// The order puts the long branches first and the cheapest last (their
+// times by class: PERF.md).
+enum {
+  BC_PLAY, BC_REROLL, BC_SKIP, BC_CONSUMABLE, BC_BLIND, BC_DISCARD, BC_END, BC_BUY,
+  BC_SELL, BC_SELECT, BC_IDLE, kBranchClasses
+};
+
+// The branch groups: play; the other classes that generate a shop (reroll,
+// skip); the consumables; the rest. A warp of env_step_kernel runs one
+// group.
+constexpr int kBranchGroups = 4;
+__device__ __forceinline__ int branch_group(int c) {
+  return c == BC_PLAY ? 0 : (c <= BC_SKIP ? 1 : (c == BC_CONSUMABLE ? 2 : 3));
+}
+
+__device__ __forceinline__ int branch_class(const State& s, int a) {
+  const bool over = s.ante > 100 || s.career > 1000000000 || s.done;
+  if (over || !legal(s, a)) return BC_IDLE;
+  if (s.phase == PH_PLAY)
+    return a == 0 ? BC_PLAY : (a == 1 ? BC_DISCARD : (a < 10 ? BC_SELECT : BC_CONSUMABLE));
+  if (s.phase == PH_SHOP)
+    return a < 30 ? BC_BUY : (a == 30 ? BC_REROLL : (a == 31 ? BC_END : BC_SELL));
+  return a < 48 ? BC_BLIND : BC_SKIP;
+}
+
 // One step_autoreset. Returns the reward; sets done. kUnrolledReset: the
 // reset's form (see reset_state). kAutoreset false: the engine's own step,
 // whose done envs keep their final state (done set, step count advanced)
-// for the caller to reset.
-template <bool kUnrolledReset, bool kAutoreset = true>
+// for the caller to reset. kJoinShop: the three branches that generate a
+// shop (a play that beats the blind, a skip, a reroll) leave it pending
+// and one call after the branches runs it, so that a warp whose lanes took
+// different ones of them runs the shop generation once, not once a branch
+// (the engine's step kernel; K2 and K3a keep the calls in their branches).
+template <bool kUnrolledReset, bool kAutoreset = true, bool kJoinShop = false>
 __device__ float step(State& s, int a, const float* ft, bool& done) {
   const bool over = s.ante > 100 || s.career > 1000000000 || s.done;
   float reward = over ? 0.f : -1.f;
   bool term = false;
+  PendingShop shop = {false, {0u, 0u}, 0.f};
   if (!over && legal(s, a)) {
     if (s.phase == PH_PLAY) {
       if (a == 0) {
         TfKey k_boss = {0u, 0u};
         const int outcome = play(s, ft, reward, k_boss);
         term = outcome == PLAY_FAIL;
-        if (outcome == PLAY_BEAT) advance(s, ft);
+        if (outcome == PLAY_BEAT) advance<kJoinShop>(s, ft, &shop);
         if (outcome == PLAY_CONT) {
           draw_pass(s);
           if (s.bact) boss_on_drawn(s, k_boss);
@@ -1105,7 +1207,8 @@ __device__ float step(State& s, int a, const float* ft, bool& done) {
         if (afford) {
           s.money -= cost;
           s.rbase = fl(fmul((float)s.rbase, 1.35000002f));
-          shop_gen(s, k_rr, mult);
+          if constexpr (kJoinShop) shop = {true, k_rr, mult};
+          else shop_gen(s, k_rr, mult);
         }
         reward = afford ? 0.f : -1.f;
       } else if (a == 31) {
@@ -1120,10 +1223,13 @@ __device__ float step(State& s, int a, const float* ft, bool& done) {
         reward = select_blind(s, a, ft);
         draw_pass(s);
       } else {
-        advance(s, ft);
+        advance<kJoinShop>(s, ft, &shop);
         reward = -5.f;
       }
     }
+  }
+  if constexpr (kJoinShop) {
+    if (shop.on) shop_gen(s, shop.key, shop.mult);
   }
   done = over || term;
   s.done = done;

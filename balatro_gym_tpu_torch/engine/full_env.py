@@ -14,7 +14,11 @@ function runs on the device its state lies on.
   (``ops/fused_full_rollout.py``) without its autoreset: :func:`step`
   packs the state into rows, runs ``ops.fused_policy_rollout.
   env_step_fused`` (``env_step_kernel`` on a card, the plain rows with the
-  state on the CPU) and unpacks.
+  state on the CPU) and unpacks. On a card :func:`reset`,
+  :func:`autoreset` and :func:`step_autoreset` write fresh episodes with
+  ``env_reset_fused`` (``env_reset_kernel``, the engine's permutation
+  shuffle) on packed rows; on the CPU they run :func:`reset_reference`,
+  the same reset in torch.
 * :func:`observe_vector` and :func:`action_mask` are the batched policy
   inputs: K3b (``observe_fused``) on a card, its plain rows on the CPU.
   :func:`observe` is the reference's Dict observation, batched, in torch.
@@ -119,7 +123,24 @@ class FullEnvState:
 def reset(keys) -> FullEnvState:
     """Fresh episodes, one per key (``keys``: ``[B, 2]`` Threefry words):
     the 52-card deck shuffled by ``permutation(fold_in(stream_key(key,
-    'deck_shuffle'), 0), 52)``, phase BLIND_SELECT, money 4, blind 300."""
+    'deck_shuffle'), 0), 52)``, phase BLIND_SELECT, money 4, blind 300.
+    On a card ``env_reset_kernel`` writes every env's rows; with the keys
+    on the CPU it is :func:`reset_reference`."""
+    if keys.device.type == "cpu":
+        return reset_reference(keys)
+    from balatro_gym_tpu_torch.ops import fused_full_rollout as FF
+    from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
+    B, dev = keys.shape[0], keys.device
+    rows = {"cards": torch.empty(6, MAX_DECK, B, dtype=torch.int32, device=dev),
+            "ints": torch.empty(FF.NI, B, dtype=torch.int32, device=dev),
+            "rng": torch.empty(FF.NR, B, dtype=torch.int32, device=dev)}
+    every = torch.ones(B, dtype=torch.bool, device=dev)
+    return FF.unpack_full_state(FP.env_reset_fused(rows, every, keys, device=dev))
+
+
+def reset_reference(keys) -> FullEnvState:
+    """:func:`reset` in torch, on the keys' device: the plain version of
+    ``env_reset_kernel``."""
     keys = keys.to(torch.int64)
     dev, B = keys.device, keys.shape[0]
     k1, k2 = keys[:, 0], keys[:, 1]
@@ -177,9 +198,15 @@ def where_envs(p, a, b):
 
 def autoreset(state: FullEnvState, done) -> FullEnvState:
     """``state`` with each ``done`` env replaced by ``reset(fold_in(key,
-    step_count))``."""
+    step_count))``: on a card ``env_reset_kernel`` on the packed state, on
+    the CPU :func:`reset_reference` merged where done."""
+    if state.ante.device.type != "cpu":
+        from balatro_gym_tpu_torch.ops import fused_full_rollout as FF
+        from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
+        packed = FP.env_reset_fused(FF.pack_full_state(state), done, device=state.ante.device)
+        return FF.unpack_full_state(packed)
     k1, k2 = KR.fold_in(state.key[:, 0], state.key[:, 1], state.step_count.to(torch.int64))
-    return where_envs(done, reset(torch.stack([k1, k2], -1)), state)
+    return where_envs(done, reset_reference(torch.stack([k1, k2], -1)), state)
 
 
 def _hand_card_view(state: FullEnvState):
@@ -227,9 +254,17 @@ def step(state: FullEnvState, actions):
 
 def step_autoreset(state: FullEnvState, actions):
     """:func:`step`, with each done env replaced by ``reset(fold_in(key,
-    step_count))`` of its post-step state."""
-    st, reward, done = step(state, actions)
-    return autoreset(st, done), reward, done
+    step_count))`` of its post-step state: on a card pack,
+    ``env_step_kernel``, ``env_reset_kernel`` on the done envs, unpack."""
+    dev = state.ante.device
+    if dev.type == "cpu":
+        st, reward, done = step(state, actions)
+        return autoreset(st, done), reward, done
+    from balatro_gym_tpu_torch.ops import fused_full_rollout as FF
+    from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
+    packed, reward, done = FP.env_step_fused(FF.pack_full_state(state), actions, device=dev)
+    FP.env_reset_fused(packed, done, device=dev)
+    return FF.unpack_full_state(packed), reward, done
 
 
 def observe(state: FullEnvState) -> dict:

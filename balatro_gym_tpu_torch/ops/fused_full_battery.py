@@ -1,5 +1,6 @@
 """Scenario battery for checking the fused full-env rollout: state surgery,
-coverage-biased legal action scripts and the autoreset batches of a step.
+coverage-biased legal action scripts, the autoreset batches of a step, and
+the step's branch classes with batches that take one each.
 
 Numpy twin of ``scripts/fused_full_common.py`` (the reference's validators
 use it), for machines without JAX: from the same state and the same numpy
@@ -19,6 +20,7 @@ import torch
 from balatro_gym_tpu_torch.engine import consumable_logic as CL
 from balatro_gym_tpu_torch.engine.full_env import FullEnvState
 from balatro_gym_tpu_torch.ops import boss as BB
+from balatro_gym_tpu_torch.ops import fused_full_rollout as F
 from balatro_gym_tpu_torch.ops.fused_full_rollout import S_ANTE
 
 # Consumable ids covering every sub-path of the consumable branch.
@@ -124,6 +126,67 @@ def coverage(acts):
     """Count of the actions of each class in an action script."""
     hist = np.bincount(np.asarray(acts).reshape(-1), minlength=60)
     return {name: int(hist[a0:a1].sum()) for name, a0, a1 in ACTION_CLASSES}
+
+
+def _takes(packed):
+    """``[60, B]`` bool: the actions whose branch each env's step takes,
+    the legal ones of an env that is not over."""
+    s = F._load(packed)
+    live = (s["ante"] <= 100) & (s["career"] <= 1_000_000_000) & ~s["done"]
+    return F._legal_rows(s) & live
+
+
+# The step's branch classes, in the order of csrc/full_step.cuh's enum
+# (branch_class): the class of ACTION_CLASSES that an env's action takes,
+# "idle" for an illegal action or an env that is over.
+BRANCH_CLASSES = ("play", "reroll", "skip", "consumable", "blind", "discard", "end", "buy",
+                  "sell", "select", "idle")
+
+
+def branch_classes(packed, actions):
+    """``[B]`` int64: each env's branch class in a fed-step batch, as an
+    index of ``BRANCH_CLASSES``."""
+    a = torch.as_tensor(actions).to(packed["ints"].device).long()
+    taken = _takes(packed).gather(0, a[None])[0]
+    out = torch.full_like(a, BRANCH_CLASSES.index("idle"))
+    for name, a0, a1 in ACTION_CLASSES:
+        out = torch.where(taken & (a >= a0) & (a < a1), BRANCH_CLASSES.index(name), out)
+    return out
+
+
+def class_histogram(packed, actions):
+    """Envs of a fed-step batch by branch class (those with any)."""
+    counts = torch.bincount(branch_classes(packed, actions), minlength=len(BRANCH_CLASSES))
+    return {name: int(c) for name, c in zip(BRANCH_CLASSES, counts.tolist()) if c}
+
+
+def class_batches(states, n, rng: np.random.Generator):
+    """For each class of ``ACTION_CLASSES``, a fed-step batch ``(packed,
+    actions)`` of ``n`` envs that all take it: columns of the packed states
+    ``states`` (a list of packed dicts on one device) at envs whose step
+    takes an action of the class (legal, the env not over), drawn with ``rng`` (with replacement where
+    there are fewer than ``n``), each with a legal action of the class drawn
+    uniformly. A class taken nowhere is left out."""
+    masks = np.stack([_takes(p).T.cpu().numpy() for p in states])
+    stacked = {k: torch.stack([p[k] for p in states]) for k in states[0]}
+    dev = stacked["ints"].device
+    out = {}
+    for name, a0, a1 in ACTION_CLASSES:
+        ti, ei = np.nonzero(masks[:, :, a0:a1].any(2))
+        if len(ti) == 0:
+            continue
+        pick = rng.choice(len(ti), n, replace=len(ti) < n)
+        ti, ei = ti[pick], ei[pick]
+        w = masks[ti, ei, a0:a1].astype(np.float64)
+        cum = np.cumsum(w, axis=1)
+        u = rng.random((n, 1)) * cum[:, -1:]
+        actions = (a0 + np.argmax(cum > u, axis=1)).astype(np.int32)
+        t, e = torch.as_tensor(ti, device=dev), torch.as_tensor(ei, device=dev)
+        packed = {"cards": stacked["cards"][t, :, :, e].permute(1, 2, 0).contiguous(),
+                  "ints": stacked["ints"][t, :, e].T.contiguous(),
+                  "rng": stacked["rng"][t, :, e].T.contiguous()}
+        out[name] = (packed, torch.as_tensor(actions, device=dev))
+    return out
 
 
 def reset_batches(packed):

@@ -45,7 +45,8 @@ non-zero:
    read from the built kernel, and the SASS of its step loop against the
    source operations an env-step (``K4_STEP_OPS``);
 7. full-env main path: one sampled rollout at 131072 x 256 from the
-   default reset, the launch counter reset before and read after; outputs
+   default reset (the engine's reset kernel ``env_reset_kernel``, one
+   launch), the launch counters reset before and read after; outputs
    checked for shape and range; the same call at 131072 x 32 equals its
    plain version bit for bit (state, reward, episodes);
 8. full-env fed battery: 16384 envs after a 4-step sampled prelude and the
@@ -54,7 +55,8 @@ non-zero:
    64-step call equals the chained plain steps bit for bit, and every
    action class is fed;
 9. full-env timing: the kernel at 131072 x 256 (10 back-to-back calls per
-   sample) and the plain version at 131072 x 8, median of 5 samples; K2's
+   sample, each with its default reset's ``env_reset_kernel`` launch) and
+   the plain version at 131072 x 8, median of 5 samples; K2's
    launch shape (block, shared bytes, registers, stack) read from the
    built kernel;
 10. policy main path: ``ops.fused_policy_rollout.collect_policy_fused``
@@ -132,31 +134,46 @@ non-zero:
     (every action class, an illegal action in every 11th env, envs on their
     last hand, past the score cap and already done) against the plain
     no-reset step on the card, bit for bit (packed state, reward, done);
-    ``step_autoreset`` against the plain step plus the engine's reset;
-    ``observe_vector`` and ``action_mask`` (K3b) against their plain rows;
-    the kernel's card time behind a card sleep (median of 5 rounds of 20
-    calls), also with no env ending and with every env ending, K3a's on the
-    same inputs, the ``step`` and ``step_autoreset`` calls' times and the
-    plain step's; its launch shape and ptxas lines, and K2's and K3a's ptxas
-    lines beside those recorded before the step kernel joined their step
-    (``RECORDED_PTXAS``; printed, not held: a redesign changes them);
+    ``step_autoreset`` (``env_step_kernel``, then ``env_reset_kernel`` on
+    the done envs) against the plain step plus the engine's torch reset,
+    and ``env_reset_kernel`` on each step's done envs against its plain
+    version; ``observe_vector`` and ``action_mask`` (K3b) against their
+    plain rows; the kernel's card time behind a card sleep (median of 5
+    rounds of 20 calls), K3a's on the same inputs, the ``step`` and
+    ``step_autoreset`` calls' times and the plain step's; by branch class:
+    every launch form of ``env_step_kernel`` (``FP.ENV_STEP_FORMS``: the
+    parent's shape, the grouped blocks, the class order) held against the
+    plain step and timed on batches in which every env takes one branch
+    class (``BAT.class_batches``), no env ends or every env is over, and on
+    the battery's mix; ``env_reset_kernel`` in its autoreset mode on the
+    battery's done envs and in its fresh mode over 8192 and 131072 envs,
+    each held against its plain version and timed, with the ``autoreset``
+    and ``reset`` calls; the launch shapes and ptxas lines of both kernels
+    and the class pass, and K2's and K3a's ptxas lines beside those
+    recorded before the step kernel joined their step (``RECORDED_PTXAS``;
+    printed, not held: a redesign changes them);
 19. generic PPO: ``make_ppo(full_env_hooks())`` with the ``fast_decay``
     recipe but ``fused_rollout=False``, 8192 x 128, ``ActorCritic(256,
     256)``, 3 updates, the launch counters reset before and read after
-    (``env_step_fused`` 128 an update; K3b 2 a step and 2 for the last
-    value; K3a and the sampler none); every action legal, metrics finite;
-    the median update by CUDA events, its stages, and the card's idle share
-    (profiler card time against the unprofiled update);
+    (``env_step_fused`` and ``env_reset_fused`` 128 each an update; K3b 2 a
+    step and 2 for the last value; K3a and the sampler none); every action
+    legal, metrics finite; the median update by CUDA events, its stages,
+    and the card's idle share (profiler card time against the unprofiled
+    update); every launch form of ``env_step_kernel`` on the state and
+    actions of the first update's step 64 (the generic mix), held against
+    the plain step and timed;
 20. evaluate: a greedy anti-loop ``evaluate_policy`` of phase 19's policy,
-    1024 episodes x 256 steps on the card; its statistics and wall time;
+    1024 episodes x 256 steps on the card (256 step launches, 1 reset);
+    its statistics and wall time;
 21. gym shell: ``envs.BalatroGymEnv`` on the card for 100 random legal
     steps against the same shell on the CPU (observations with their numpy
     dtypes, rewards, dones), then ``BalatroEnvValidator``'s determinism and
     action-mask checks on the card;
 22. imitation and resume: ``train.bc.make_bc`` at its default
     ``ActorCritic(256, 256)`` and 8192 envs, 3 updates with the launch
-    counters reset before and read after (K3b 2 and ``env_step_kernel`` 1
-    an update), against the same 3 updates over the kernels' plain
+    counters reset before and read after (K3b 2, ``env_step_kernel`` and
+    ``env_reset_kernel`` 1 each an update), against the same 3 updates over
+    the kernels' plain
     versions on the card (observation, mask, expert targets and env states
     bit for bit but the observation's log1p row, within 1 ulp; loss and
     parameters within 1e-6); one update's time by CUDA events and its card
@@ -173,7 +190,8 @@ non-zero:
     ``A2CConfig(n_envs=8192)`` (rollout 5, ``ActorCritic(256, 256)``) on
     the flagship env for 3 updates, the launch counters reset before and
     read after (K3b 2 a step and 2 for the last value, ``env_step_kernel``
-    1 a step), against the same updates over the kernels' plain versions
+    and ``env_reset_kernel`` 1 each a step), against the same updates over
+    the kernels' plain versions
     on the card (masks, actions, rewards, dones and env states bit for
     bit, the normalised observation but its log1p row bit for bit and that
     row within 1e-5, parameters and RMSprop's ``nu`` within 1e-6);
@@ -181,7 +199,8 @@ non-zero:
     steps_per_update=4)`` (100,000-transition ring, batch 512,
     ``QNetwork(256, 256)``) for 4 updates, the fourth wrapping the ring to
     ``buf_ptr`` 31,072 at ``buf_len`` 100,000 (K3b 4 a step,
-    ``env_step_kernel`` 1 a step), against the plain versions likewise
+    ``env_step_kernel`` and ``env_reset_kernel`` 1 each a step), against
+    the plain versions likewise
     (the ring bit for bit but the observations' log1p row, within 1 ulp;
     parameters within 1e-6); each update's time by CUDA events and the
     card's idle share by the profiler; ``envs.macro_env`` at 8192 envs for
@@ -601,11 +620,12 @@ def full_max_abs_diff(k, p):
 
 
 def phase_full_main():
-    FF.rollout_full_fused.launches = 0
+    FF.rollout_full_fused.launches = FP.env_reset_fused.launches = 0
     out = FF.rollout_full_fused(0, N_ENVS, N_STEPS, device=DEV)
     torch.cuda.synchronize()
     launches = FF.rollout_full_fused.launches
     assert launches >= 1, "the full-env main path launched no kernel"
+    assert FP.env_reset_fused.launches == 1, "the default reset did not launch env_reset"
     st, r, epi = out["state"], out["total_reward"], out["episodes"]
     assert st.card_rank.shape == (N_ENVS, 64) and r.shape == (N_ENVS,) and epi.shape == (N_ENVS,)
     assert bool(torch.isfinite(r).all()), "non-finite reward"
@@ -624,7 +644,8 @@ def phase_full_main():
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     assert_full_equal(k, p, "full-env main path kernel vs plain")
-    log("7 full main path", f"ok: rollout_full_fused {N_ENVS}x{N_STEPS} launches={launches}; "
+    log("7 full main path", f"ok: rollout_full_fused {N_ENVS}x{N_STEPS} launches={launches} "
+        f"(its default reset: env_reset 1); "
         f"{int(epi.sum())} episodes, mean reward/env-step "
         f"{float(r.double().mean()) / N_STEPS:.4f}, antes {int(st.ante.min())}-"
         f"{int(st.ante.max())}, phases {torch.bincount(st.phase.long(), minlength=3).tolist()}; "
@@ -656,11 +677,12 @@ def phase_full_fed():
 
 
 def phase_full_timing(smi):
-    n0 = FF.rollout_full_fused.launches
+    n0 = (FF.rollout_full_fused.launches, FP.env_reset_fused.launches)
     calls = 10
     k_ms, k_all = cuda_ms(lambda: FF.rollout_full_fused(1, N_ENVS, N_STEPS, device=DEV),
                           calls=calls)
-    assert FF.rollout_full_fused.launches == n0 + 1 + 5 * calls, "timed calls did not all launch"
+    assert (FF.rollout_full_fused.launches - n0[0], FP.env_reset_fused.launches - n0[1]) == (
+        1 + 5 * calls, 1 + 5 * calls), "timed calls did not all launch K2 and the reset"
     packed = FF.pack_full_state(FF.default_reset(1, N_ENVS, DEV))
     a_ms, a_all = cuda_ms(lambda: FF._kernel_packed(packed, None, 1, N_STEPS), calls=calls)
     p_ms, p_all = cuda_ms(lambda: FF.rollout_full_rows_reference(1, N_ENVS, FULL_PLAIN_STEPS,
@@ -669,7 +691,7 @@ def phase_full_timing(smi):
     p_rate = N_ENVS * FULL_PLAIN_STEPS / (p_ms / 1e3)
     shape = FF.rollout_kernel_shape()
     log("9 full timing", f"call {N_ENVS}x{N_STEPS} ({calls} calls per sample, default reset "
-        f"included): median {k_ms:.3f} ms (samples {', '.join(f'{t:.3f}' for t in k_all)}) = "
+        f"by env_reset_kernel included): median {k_ms:.3f} ms (samples {', '.join(f'{t:.3f}' for t in k_all)}) = "
         f"{k_rate:.4g} env-steps/s; kernel alone on a packed state: median {a_ms:.3f} ms "
         f"(samples {', '.join(f'{t:.3f}' for t in a_all)}) = "
         f"{N_ENVS * N_STEPS / (a_ms / 1e3):.4g} env-steps/s; plain {N_ENVS}x"
@@ -1251,8 +1273,10 @@ def ptxas_lines(source, kernel):
 
 
 def phase_env_step(smi):
-    """The engine's step (env_step_kernel) and step_autoreset against their
-    plain versions along a fed battery; the policy inputs against theirs."""
+    """The engine's step (env_step_kernel) and reset (env_reset_kernel),
+    and step_autoreset, against their plain versions along a fed battery;
+    the policy inputs against theirs; the step kernel's launch forms by
+    branch class, and the reset kernel in both modes."""
     n = STEP_ENVS
     rng = np.random.default_rng(18)
     st = BAT.surgery(FF.rollout_full_rows_reference(4, n, 4, device=DEV)["state"], rng)
@@ -1262,9 +1286,10 @@ def phase_env_step(smi):
     st.done = st.done | (env % 64 == 37)
     errs = {"reward": 0.0, "obs": 0.0}
     counts = {"ended": 0, "illegal": 0, "autoresets": 0, "log1p_ulp": 0}
-    k0 = (FP.env_step_fused.launches, FP.observe_fused.launches)
-    script, mid = [], None
+    k0 = generic_counts()
+    script, mid, pool = [], None, []
     for t in range(STEP_CHECK_STEPS):
+        pool.append(FF.pack_full_state(st))
         obs, mask = FE.observe_vector(st), FE.action_mask(st)
         p_obs, p_mask = FP.observe_rows_reference(FF.pack_full_state(st))
         assert torch.equal(mask, p_mask), f"step {t}: action_mask differs from its plain rows"
@@ -1289,23 +1314,28 @@ def phase_env_step(smi):
         s2, r2, d2 = FE.step_autoreset(st, a)
         final = FF.unpack_full_state(plain)
         k1, k2 = KR.fold_in(final.key[:, 0], final.key[:, 1], final.step_count.to(torch.int64))
-        want = FE.where_envs(dp, FE.reset(torch.stack([k1, k2], -1)), final)
+        want = FE.where_envs(dp, FE.reset_reference(torch.stack([k1, k2], -1)), final)
         bad = FF.states_equal(s2, want)
         assert not bad, f"step {t}: step_autoreset differs from plain step + reset in {bad}"
         assert torch.equal(r2, rp) and torch.equal(d2, dp)
+        rows = {k: v.clone() for k, v in plain.items()}
+        FP.env_reset_fused(rows, dp, device=DEV)
+        want = FP.env_reset_rows_reference(plain, dp)
+        assert all(torch.equal(rows[k], want[k]) for k in rows), f"step {t}: env_reset differs"
         counts["ended"] += int(d1.sum())
         counts["illegal"] += int((~mask.gather(1, a.long()[:, None])[:, 0]).sum())
         if t == STEP_CHECK_STEPS // 2:
-            mid = (FF.pack_full_state(st), a)
+            mid = (FF.pack_full_state(st), a, plain, dp)
         st = s2
     torch.cuda.synchronize()
-    launched = (FP.env_step_fused.launches - k0[0], FP.observe_fused.launches - k0[1])
-    assert launched == (2 * STEP_CHECK_STEPS, 2 * STEP_CHECK_STEPS), launched
+    launched = {k: v - k0[k] for k, v in generic_counts().items()}
+    assert launched == {"env_step": 2 * STEP_CHECK_STEPS, "env_reset": 2 * STEP_CHECK_STEPS,
+                        "K3b": 2 * STEP_CHECK_STEPS, "K3a": 0, "sampler": 0}, launched
     cov = BAT.coverage(np.stack(script))
     assert all(v > 0 for v in cov.values()), cov
     assert counts["ended"] > 0 and counts["illegal"] > 0
 
-    packed, a = mid
+    packed, a, after, ended = mid
     calls = 20
     k_ms, k_all = card_ms_behind_sleep(lambda: FP.env_step_fused(packed, a, device=DEV), calls)
     state = FF.unpack_full_state(packed)
@@ -1314,67 +1344,230 @@ def phase_env_step(smi):
     p_ms, p_all = cuda_ms(lambda: FP.env_step_rows_reference(packed, a))
     k3a_ms, _ = card_ms_behind_sleep(lambda: FP.step_fused(packed, a, device=DEV), calls)
     no_reset, all_reset = BAT.reset_batches(packed)
-    ends_ms = {}
     for what, (p, act), ends in (("no_reset", no_reset, False), ("all_end", all_reset, True)):
-        out = FP.env_step_fused(p, act, device=DEV)
-        want = FP.env_step_rows_reference(p, act)
-        assert all(torch.equal(out[0][k], want[0][k]) for k in p), what
-        assert torch.equal(out[1], want[1]) and bool((out[2] == ends).all()), what
-        ends_ms[what] = card_ms_behind_sleep(lambda: FP.env_step_fused(p, act, device=DEV),
-                                             calls)[0]
-    shape = FP.env_step_kernel_shape()
+        assert bool((FP.env_step_rows_reference(p, act)[2] == ends).all()), what
+    batches = {"idle (action 59)": no_reset, "over (ante 101)": all_reset,
+               **BAT.class_batches(pool, n, rng), "battery mix": (packed, a)}
+    del pool
+    classes = step_class_table(batches)
+    classes.update(step_class_table(class_splits("battery mix", packed, a),
+                                    ("parent", FP.ENV_STEP_FORM)))
+    traces = [step_trace(packed, a, form) for form in ("parent", FP.ENV_STEP_FORM)]
+    reset = reset_timing(after, ended)
+    shapes = {form: FP.env_step_kernel_shape(form) for form in FP.ENV_STEP_FORMS}
+    shape = shapes[FP.ENV_STEP_FORM]
     b = bound(n * (2 * PACKED_BYTES + 9), 0)
     ptxas = {k: ptxas_lines(src, k) for k, src in (
         ("fused_full_rollout_kernel", "fused_full_rollout.cu"),
         ("policy_step_kernel", "fused_policy_rollout.cu"))}
-    env_ptxas = ptxas_lines("fused_policy_rollout.cu", "env_step_kernel")
+    env_ptxas = {k: ptxas_lines("fused_policy_rollout.cu", k) for k in (
+        "env_step_kernel", "env_reset_kernel", "env_class_kernel", "env_order_kernel")}
     same = {k: "equal" if lines == RECORDED_PTXAS[k] else "CHANGED"
             for k, lines in ptxas.items()}
     fmt = ", ".join
     log("18 full step", f"ok: {n} envs x {STEP_CHECK_STEPS} steps of the battery "
         f"(coverage {cov}; {counts['illegal']} illegal actions, {counts['ended']} ends): "
-        f"full_env.step (env_step_kernel) == plain no-reset step bitwise (packed state, "
-        f"reward, done); step_autoreset == plain step + the engine's reset bitwise; "
-        f"observe_vector and action_mask (K3b) == plain rows (log1p row entries 1 ulp apart: "
-        f"{counts['log1p_ulp']}); launches env_step {launched[0]}, K3b {launched[1]}; "
-        f"env_step_kernel at {n} envs, card time behind a sleep ({calls} back-to-back "
-        f"calls): median {k_ms * 1e3:.1f} us (rounds {fmt(f'{x * 1e3:.1f}' for x in k_all)}); "
-        f"no env ending {ends_ms['no_reset'] * 1e3:.1f} us, every env ending "
-        f"{ends_ms['all_end'] * 1e3:.1f} us; K3a on the same inputs {k3a_ms * 1e3:.1f} us; "
-        f"full_env.step call (pack, kernel, unpack) median {call_ms:.3f} ms (samples "
-        f"{fmt(f'{x:.3f}' for x in call_all)}), step_autoreset call {auto_ms:.3f} ms "
-        f"(samples {fmt(f'{x:.3f}' for x in auto_all)}); plain no-reset step {p_ms:.1f} ms; "
-        f"bound {b[0] * 1e3:.2f} us ({b[1]}: 2 x {PACKED_BYTES} + 9 B an env at "
-        f"{HBM_BYTES_PER_S:.3g} B/s); launch shape {shape['block']} threads a block, "
-        f"{shape['shared_bytes']} B shared a block, {shape['registers']} registers, "
-        f"{shape['stack_bytes']} B stack; ptxas env_step_kernel {env_ptxas}; "
+        f"full_env.step (env_step_kernel, form {FP.ENV_STEP_FORM!r}) == plain no-reset step "
+        f"bitwise (packed state, reward, done); step_autoreset (env_step_kernel, then "
+        f"env_reset_kernel) == plain step + the engine's torch reset bitwise; env_reset_kernel "
+        f"on each step's done envs == its plain version bitwise; observe_vector and "
+        f"action_mask (K3b) == plain rows (log1p row entries 1 ulp apart: "
+        f"{counts['log1p_ulp']}); launches {launched}; env_step_kernel at {n} envs, card time "
+        f"behind a sleep ({calls} back-to-back calls): median {k_ms * 1e3:.1f} us (rounds "
+        f"{fmt(f'{x * 1e3:.1f}' for x in k_all)}); K3a on the same inputs "
+        f"{k3a_ms * 1e3:.1f} us; full_env.step call (pack, kernel, unpack) median "
+        f"{call_ms:.3f} ms (samples {fmt(f'{x:.3f}' for x in call_all)}), step_autoreset call "
+        f"{auto_ms:.3f} ms (samples {fmt(f'{x:.3f}' for x in auto_all)}); plain no-reset step "
+        f"{p_ms:.1f} ms; bound {b[0] * 1e3:.2f} us ({b[1]}: 2 x {PACKED_BYTES} + 9 B an env at "
+        f"{HBM_BYTES_PER_S:.3g} B/s); launch forms (block, regroup, class pass) "
+        f"{FP.ENV_STEP_FORMS} and shapes {shapes}; ptxas {env_ptxas}; "
         + "; ".join(f"{name} {ptxas[k]} ({same[k]} to the recorded {RECORDED_PTXAS[k]})"
                     for name, k in (("K2", "fused_full_rollout_kernel"),
                                     ("K3a", "policy_step_kernel")))
-        + f" [{smi}]")
+        + f"; env_step_kernel by branch class and launch form: {class_table_text(classes)}; "
+        f"its clock trace on the battery mix: {'; '.join(map(trace_text, traces))}; "
+        f"env_reset_kernel: {reset_text(reset)} [{smi}]")
     return {"max_abs_err": max(errs.values()), "ms": k_ms, "ms_rounds": k_all,
-            "plain_ms": p_ms, "call_ms": call_ms, "step_autoreset_call_ms": auto_ms,
-            "no_reset_ms": ends_ms["no_reset"], "all_end_ms": ends_ms["all_end"],
-            "k3a_same_inputs_ms": k3a_ms, "launch_shape": shape, "ptxas": env_ptxas,
-            "work": (n * (2 * PACKED_BYTES + 9), 0), "shape": [n]}
+            "classes": classes, "traces": traces, "plain_ms": p_ms, "call_ms": call_ms,
+            "step_autoreset_call_ms": auto_ms, "k3a_same_inputs_ms": k3a_ms,
+            "launch_shape": shape, "form": FP.ENV_STEP_FORM, "form_shapes": shapes,
+            "ptxas": env_ptxas, "work": (n * (2 * PACKED_BYTES + 9), 0), "shape": [n],
+            "reset": reset}
+
+
+# A reset's integer work an env: 56 Threefry hashes (its key's fold_in, the
+# shuffle key's three, the 52 words) and the 672 compare-exchanges of the
+# 64-key bitonic sort at 8 int32 operations each (two 32-bit halves
+# compared, two 64-bit selects).
+RESET_OPS = 56 * THREEFRY_OPS + 672 * 8
+RESET_ENVS = N_ENVS                     # fresh mode at the K2 call's width
+
+
+def reset_work(masked, n):
+    """(bytes, integer operations) of a reset of ``masked`` of ``n`` envs:
+    each masked env's rows written and its key and step count read, and
+    the mask."""
+    return masked * (PACKED_BYTES + 12) + n, masked * RESET_OPS
+
+
+def reset_timing(packed, mask, calls=20):
+    """env_reset_kernel in autoreset mode on ``packed`` (the battery's
+    post-step rows, ``mask`` its done envs) and in fresh mode over every
+    env at 8192 and at 131072 (the K2 call's default reset), each held
+    against its plain version; card times behind a sleep, the plain
+    versions' and the calls' (``autoreset``, ``reset``) by CUDA events."""
+    out = {}
+    n = mask.shape[0]
+    cases = {"autoreset": (packed, mask, None, n)}
+    for m in (n, RESET_ENVS):
+        keys = torch.stack(KR.split_child(*KR.seed_key(9, device=DEV),
+                                          torch.arange(m, device=DEV)), -1)
+        zeros = {k: torch.zeros(v.shape[:-1] + (m,), dtype=v.dtype, device=DEV)
+                 for k, v in packed.items()}
+        cases[f"fresh {m}"] = (zeros, torch.ones(m, dtype=torch.bool, device=DEV), keys, m)
+    for what, (p, msk, keys, m) in cases.items():
+        rows = {k: v.clone() for k, v in p.items()}
+        FP.env_reset_fused(rows, msk, keys, device=DEV)
+        want = FP.env_reset_rows_reference(p, msk, keys)
+        assert all(torch.equal(rows[k], want[k]) for k in rows), f"env_reset {what}"
+        masked = int(msk.sum())
+        k_ms, k_all = card_ms_behind_sleep(lambda: FP.env_reset_fused(rows, msk, keys, device=DEV),
+                                           calls)
+        p_ms, _ = cuda_ms(lambda: FP.env_reset_rows_reference(p, msk, keys), samples=3)
+        out[what] = {"envs": m, "masked": masked, "ms": k_ms, "ms_rounds": k_all,
+                     "plain_ms": p_ms, "work": reset_work(masked, m)}
+    state = FF.unpack_full_state(packed)
+    out["autoreset"]["call_ms"] = cuda_ms(lambda: FE.autoreset(state, mask), calls=calls)[0]
+    keys = cases[f"fresh {RESET_ENVS}"][2]
+    out[f"fresh {RESET_ENVS}"]["call_ms"] = cuda_ms(lambda: FE.reset(keys), calls=5)[0]
+    out["shape"] = FP.env_reset_kernel_shape()
+    return out
+
+
+def reset_text(r):
+    return "; ".join(
+        f"{what} ({v['masked']} of {v['envs']} envs): {v['ms'] * 1e3:.1f} us "
+        f"(rounds {', '.join(f'{x * 1e3:.1f}' for x in v['ms_rounds'])}), plain "
+        f"{v['plain_ms']:.3f} ms"
+        + (f", call {v['call_ms']:.3f} ms" if "call_ms" in v else "")
+        for what, v in r.items() if what != "shape") + f"; launch shape {r['shape']}"
+
+
+def class_splits(name, packed, actions):
+    """A mix's branch classes one at a time: for each class it holds, the
+    same batch with only that class's envs taken (the others' action the
+    no-op 59)."""
+    cls = BAT.branch_classes(packed, actions)
+    noop = torch.full_like(actions, 59)
+    return {f"{name}, its {c}": (packed, torch.where(cls == i, actions, noop))
+            for i, c in enumerate(BAT.BRANCH_CLASSES[:-1]) if bool((cls == i).any())}
+
+
+def step_class_table(batches, forms=None, calls=20):
+    """Each fed-step batch's branch classes and, for each launch form of
+    env_step_kernel (default: every one of FP.ENV_STEP_FORMS), its card time
+    a launch in us behind a sleep; every form is first held against the
+    plain no-reset step bit for bit."""
+    table = {}
+    for what, (p, a) in batches.items():
+        want = FP.env_step_rows_reference(p, a)
+        row = {"classes": BAT.class_histogram(p, a)}
+        for form in forms or FP.ENV_STEP_FORMS:
+            def fn():
+                return FP.env_step_fused(p, a, device=DEV, form=form)
+            got = fn()
+            assert all(torch.equal(got[0][k], want[0][k]) for k in p), (what, form)
+            assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]), (what, form)
+            row[form] = card_ms_behind_sleep(fn, calls)[0] * 1e3
+        table[what] = row
+    return table
+
+
+SM_HZ = 1.98e9      # the H100 SXM's boost clock, to read a trace's cycles as us
+
+
+def step_trace(packed, actions, form):
+    """env_step_kernel's clock trace of one launch (after a warm-up) in a
+    launch form: per branch class, its envs' step cycles (median, largest);
+    the block spans (entry to the last store; median, largest) and the
+    latest step start; for a form of 32-env blocks without regrouping, the
+    five slowest warps' steps and the classes each holds."""
+    n = actions.shape[0]
+    trace = torch.zeros(n, 3, dtype=torch.int64, device=DEV)
+    FP.env_step_fused(packed, actions, device=DEV, form=form)
+    FP.env_step_fused(packed, actions, device=DEV, form=form, trace=trace)
+    torch.cuda.synchronize()
+    cls, tr = BAT.branch_classes(packed, actions).cpu(), trace.cpu()
+    start, step, span = tr[:, 0], tr[:, 1], tr[:, 2]
+    out = {"form": form, "by_class": {}, "span_median": int(span.median()),
+           "span_max": int(span.max()), "start_max": int(start.max())}
+    for i, c in enumerate(BAT.BRANCH_CLASSES):
+        m = cls == i
+        if bool(m.any()):
+            out["by_class"][c] = {"envs": int(m.sum()), "median": int(step[m].median()),
+                                  "max": int(step[m].max())}
+    block, regroup, classed, _ = FP.ENV_STEP_FORMS[form]
+    if block == 32 and not regroup and not classed:
+        w = n // 32
+        warp = step[:w * 32].view(w, 32).max(1).values
+        out["slowest_warps"] = [
+            {"warp": int(k), "step": int(warp[k]), "classes": dict(zip(
+                *(x.tolist() for x in torch.unique(cls[k * 32:(k + 1) * 32], return_counts=True))))}
+            for k in warp.topk(5).indices]
+        for sw in out["slowest_warps"]:
+            sw["classes"] = {BAT.BRANCH_CLASSES[c]: v for c, v in sw["classes"].items()}
+    return out
+
+
+def trace_text(t):
+    us = 1e6 / SM_HZ
+    return (f"{t['form']}: steps by class (cycles: median, largest) "
+            + ", ".join(f"{c} x{v['envs']} {v['median']}, {v['max']}" for c, v in t["by_class"].items())
+            + f"; block span median {t['span_median']} ({t['span_median'] * us:.1f} us at "
+            f"{SM_HZ:.3g} Hz), largest {t['span_max']} ({t['span_max'] * us:.1f} us); latest step "
+            f"start {t['start_max']}"
+            + (f"; slowest warps {t['slowest_warps']}" if "slowest_warps" in t else ""))
+
+
+def class_table_text(table):
+    return "; ".join(f"{what} {row['classes']}: " + ", ".join(
+        f"{k} {v:.1f} us" for k, v in row.items() if k != "classes") for what, row in table.items())
+
+
+ENGINE_WRAPPERS = {"env_step": FP.env_step_fused, "env_reset": FP.env_reset_fused,
+                   "K3b": FP.observe_fused, "K3a": FP.step_fused, "sampler": FP.sample_fused}
 
 
 def generic_counts():
-    return {"env_step": FP.env_step_fused.launches, "K3b": FP.observe_fused.launches,
-            "K3a": FP.step_fused.launches, "sampler": FP.sample_fused.launches}
+    return {name: fn.launches for name, fn in ENGINE_WRAPPERS.items()}
+
+
+def zero_counts():
+    for fn in ENGINE_WRAPPERS.values():
+        fn.launches = 0
 
 
 def phase_generic_train(smi):
     """The fast_decay recipe over the generic rollout: the engine's step
     kernel and K3b, the policy and ``categorical`` in torch."""
     cfg = TP.PPOConfig(**GENERIC)
-    init_fn, update_fn, _ = TP.make_ppo(TP.full_env_hooks(), cfg, device=DEV)
+    hooks, calls, mix = TP.full_env_hooks(), [0], {}
+
+    def recorded_step(st, actions):
+        """The engine's step_autoreset; the state and actions of the first
+        update's middle step are kept (the generic mix)."""
+        if calls[0] == cfg.rollout_len // 2:
+            mix["generic mix"] = (FF.pack_full_state(st), actions.to(torch.int32))
+        calls[0] += 1
+        return hooks.step_autoreset(st, actions)
+
+    init_fn, update_fn, _ = TP.make_ppo(hooks._replace(step_autoreset=recorded_step), cfg,
+                                        device=DEV)
     ts = init_fn([int(w) for w in KR.seed_key(0, device="cpu")])
     p0 = [p.detach().clone() for p in TP.param_list(ts.params)]
     illegal = torch.zeros((), dtype=torch.int64, device=DEV)
     episodes = torch.zeros((), dtype=torch.int64, device=DEV)
-    FP.env_step_fused.launches = FP.observe_fused.launches = 0
-    FP.step_fused.launches = FP.sample_fused.launches = 0
+    zero_counts()
     hist, times, host, stages = [], [], [], []
     for _ in range(GENERIC_UPDATES):
         rec = {}
@@ -1393,8 +1586,8 @@ def phase_generic_train(smi):
         hist.append({k: float(v) for k, v in m.items()})
     launches = generic_counts()
     T = cfg.rollout_len
-    want = {"env_step": GENERIC_UPDATES * T, "K3b": GENERIC_UPDATES * 2 * (T + 1),
-            "K3a": 0, "sampler": 0}
+    want = {"env_step": GENERIC_UPDATES * T, "env_reset": GENERIC_UPDATES * T,
+            "K3b": GENERIC_UPDATES * 2 * (T + 1), "K3a": 0, "sampler": 0}
     assert launches == want, (launches, want)
     assert int(illegal) == 0, f"{int(illegal)} sampled actions were illegal"
     assert all(np.isfinite(v) for m in hist for v in m.values()), hist
@@ -1413,6 +1606,10 @@ def phase_generic_train(smi):
     top = sorted(((sum(ds), len(ds), nm) for nm, ds in by_name.items()), reverse=True)[:8]
     env_us = [d for nm, ds in by_name.items() if "env_step_kernel" in nm for d in ds]
     rate = cfg.n_envs * T / (upd_ms / 1e3)
+    classes = step_class_table(mix)
+    classes.update(step_class_table(class_splits("generic mix", *mix["generic mix"]),
+                                    ("parent", FP.ENV_STEP_FORM)))
+    traces = [step_trace(*mix["generic mix"], form) for form in ("parent", FP.ENV_STEP_FORM)]
     log("19 generic PPO", f"ok: make_ppo(full_env_hooks(), fast_decay, fused_rollout=False) "
         f"{cfg.n_envs}x{T}, ActorCritic(256, 256), {GENERIC_UPDATES} updates, launches="
         f"{launches} (env_step {T} an update, K3b 2 a step and 2 for the last value); every "
@@ -1426,33 +1623,36 @@ def phase_generic_train(smi):
                 f"env_step_kernel {statistics.median(env_us) * 1e3 if env_us else 0:.1f} us a "
                 f"launch x{len(env_us)}; top kernels {[(nm[:48], c, round(ms, 3)) for ms, c, nm in top]}"
                 f" (launches, ms)")
-        + f"; metrics by update {[{k: round(v, 5) for k, v in m.items()} for m in hist]} "
-        f"[{smi}]")
+        + f"; metrics by update {[{k: round(v, 5) for k, v in m.items()} for m in hist]}; "
+        f"env_step_kernel on the first update's step {T // 2}: {class_table_text(classes)}; "
+        f"its clock trace there: {'; '.join(map(trace_text, traces))} [{smi}]")
     return ts, {"config": GENERIC, "updates": GENERIC_UPDATES, "launches_main_path": launches,
                 "update_ms": upd_ms, "update_ms_samples": times, "host_update_ms": host,
                 "env_steps_per_s": rate, "stages_ms": mid, "card_ms_per_update": card_ms,
                 "card_idle_share": idle, "card_idle_share_profiled": idle_prof,
                 "env_step_in_update_us": statistics.median(env_us) * 1e3 if env_us else None,
+                "generic_mix": classes, "generic_mix_traces": traces,
                 "top_kernels": [{"name": nm, "launches": c, "ms": ms} for ms, c, nm in top],
                 "metrics_by_update": hist, "gpu": smi}
 
 
 def phase_evaluate(smi, ts):
     """A greedy anti-loop evaluation of phase 19's policy on the card."""
-    n0 = FP.env_step_fused.launches
+    n0 = (FP.env_step_fused.launches, FP.env_reset_fused.launches)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     stats = EV.evaluate_policy(lambda p, o, m: p(o, m), ts.params, TP.full_env_hooks(),
                                EVAL_EPISODES, EVAL_STEPS, seed=7, obs_stats=ts.obs_stats)
     wall = time.perf_counter() - t0
-    assert FP.env_step_fused.launches - n0 == EVAL_STEPS
+    assert (FP.env_step_fused.launches - n0[0], FP.env_reset_fused.launches - n0[1]) == (
+        EVAL_STEPS, 1)
     assert set(stats) == {"episodes", "mean_reward", "mean_length", "max_reward",
                           "mean_ante", "max_ante"}, stats
     assert 0 <= stats["episodes"] <= EVAL_EPISODES and 0 < stats["mean_length"] <= EVAL_STEPS
     assert np.isfinite(stats["mean_reward"]) and stats["max_ante"] >= 1
     log("20 evaluate", f"ok: evaluate_policy greedy anti-loop, {EVAL_EPISODES} episodes x "
         f"{EVAL_STEPS} steps, phase 19's policy and statistics: {stats}; env_step launches "
-        f"{EVAL_STEPS}; wall {wall:.3f} s ({wall / EVAL_STEPS * 1e3:.2f} ms a step) [{smi}]")
+        f"{EVAL_STEPS}, env_reset 1 (its reset); wall {wall:.3f} s ({wall / EVAL_STEPS * 1e3:.2f} ms a step) [{smi}]")
     return {"stats": stats, "wall_s": wall, "episodes": EVAL_EPISODES, "steps": EVAL_STEPS}
 
 
@@ -1493,16 +1693,19 @@ def phase_gym(smi):
 def plain_engine_hooks():
     """The flagship env's hooks over the kernels' plain versions on the
     card: the observation and mask from K3b's plain rows, the step from
-    ``env_step_kernel``'s plain rows, then the engine's own reset."""
+    ``env_step_kernel``'s plain rows, the resets ``env_reset_kernel``'s
+    (the engine's torch reset)."""
     def inputs(st):
         return FP.observe_rows_reference(FF.pack_full_state(st))
 
     def step_autoreset(st, actions):
         packed, reward, done = FP.env_step_rows_reference(FF.pack_full_state(st),
                                                           actions.to(torch.int32))
-        return FE.autoreset(FF.unpack_full_state(packed), done), reward, done
+        packed = FP.env_reset_rows_reference(packed, done)
+        return FF.unpack_full_state(packed), reward, done
 
-    return TP.full_env_hooks()._replace(observe=lambda st: inputs(st)[0],
+    return TP.full_env_hooks()._replace(reset=FE.reset_reference,
+                                        observe=lambda st: inputs(st)[0],
                                         action_mask=lambda st: inputs(st)[1],
                                         step_autoreset=step_autoreset)
 
@@ -1545,15 +1748,15 @@ def phase_imitation(smi):
     # and read after; then the same 3 over the plain versions
     bc = init_fn(key)
     runs = {"card": [], "plain": []}
-    FP.observe_fused.launches = FP.env_step_fused.launches = 0
-    FP.step_fused.launches = FP.sample_fused.launches = 0
+    zero_counts()
     for _ in range(BC_UPDATES):
         rec = {}
         bc, m = update_fn(bc, record=rec)
         runs["card"].append((rec, m, bc.env_states, [p.detach().clone() for p in TP.param_list(bc.params)]))
     torch.cuda.synchronize()
     launches = generic_counts()
-    want = {"env_step": BC_UPDATES, "K3b": 2 * BC_UPDATES, "K3a": 0, "sampler": 0}
+    want = {"env_step": BC_UPDATES, "env_reset": BC_UPDATES, "K3b": 2 * BC_UPDATES, "K3a": 0,
+            "sampler": 0}
     assert launches == want, (launches, want)
     bp = plain_init(key)
     for _ in range(BC_UPDATES):
@@ -1736,13 +1939,13 @@ def phase_other_learners(smi):
             TP.param_list(ts.params), TP.param_list(tp.params)))
         a2c_err["nu"] = max(a2c_err["nu"], max_param_diff(ts.opt_state.nu, tp.opt_state.nu))
 
-    FP.observe_fused.launches = FP.env_step_fused.launches = 0
-    FP.step_fused.launches = FP.sample_fused.launches = 0
+    zero_counts()
     ts, _, a2c_times, a2c_hist = timed_updates(update_fn, ts, plain_update, copy.deepcopy(ts),
                                                A2C_UPDATES, a2c_compare)
     a2c_launches = generic_counts()
     T = cfg.rollout_len
-    want = {"env_step": A2C_UPDATES * T, "K3b": A2C_UPDATES * (2 * T + 2), "K3a": 0, "sampler": 0}
+    want = {"env_step": A2C_UPDATES * T, "env_reset": A2C_UPDATES * T,
+            "K3b": A2C_UPDATES * (2 * T + 2), "K3a": 0, "sampler": 0}
     assert a2c_launches == want, (a2c_launches, want)
     assert a2c_err["obs_log1p"] <= NORM_LOG1P_ATOL, a2c_err
     assert a2c_err["params"] <= PARAM_ATOL and a2c_err["nu"] <= PARAM_ATOL, a2c_err
@@ -1772,13 +1975,12 @@ def phase_other_learners(smi):
         dqn_err["target"] = max(dqn_err["target"], max_param_diff(
             TP.param_list(ts.target_params), TP.param_list(tp.target_params)))
 
-    FP.observe_fused.launches = FP.env_step_fused.launches = 0
-    FP.step_fused.launches = FP.sample_fused.launches = 0
+    zero_counts()
     ts, _, dqn_times, dqn_hist = timed_updates(update_fn, ts, plain_update, copy.deepcopy(ts),
                                                DQN_UPDATES, dqn_compare)
     dqn_launches = generic_counts()
-    want = {"env_step": DQN_UPDATES * DQN_STEPS, "K3b": DQN_UPDATES * 4 * DQN_STEPS,
-            "K3a": 0, "sampler": 0}
+    want = {"env_step": DQN_UPDATES * DQN_STEPS, "env_reset": DQN_UPDATES * DQN_STEPS,
+            "K3b": DQN_UPDATES * 4 * DQN_STEPS, "K3a": 0, "sampler": 0}
     assert dqn_launches == want, (dqn_launches, want)
     ring = (ts.buf_ptr, ts.buf_len)
     assert ring == (DQN_UPDATES * DQN_STEPS * DQN_ENVS % dcfg.buffer_size, dcfg.buffer_size), ring
@@ -1935,7 +2137,7 @@ def main():
             **{k: w for k, w in zip(("policy_step", "policy_observe", "policy_sample"),
                                     policy_work(POLICY_ENVS, pt["hand_cards"]).values())},
             "hand_histograms": hist["work"], "alu_chains": alu["work"],
-            "env_step": es["work"]}
+            "env_step": es["work"], "env_reset": es["reset"]["autoreset"]["work"]}
     src = "balatro_gym_tpu_torch/csrc/"
     policy_src = src + "fused_policy_rollout.cu"
     kernels = [{
@@ -1992,9 +2194,30 @@ def main():
         "max_abs_err": es["max_abs_err"], "ms": es["ms"], "ms_from": "events behind a sleep",
         "plain_ms": es["plain_ms"], "call_ms": es["call_ms"],
         "step_autoreset_call_ms": es["step_autoreset_call_ms"],
-        "no_reset_ms": es["no_reset_ms"], "all_end_ms": es["all_end_ms"],
         "k3a_same_inputs_ms": es["k3a_same_inputs_ms"], "shape": es["shape"],
+        "form": es["form"], "forms": FP.ENV_STEP_FORMS, "form_shapes": es["form_shapes"],
+        "us_by_class_and_form": es["classes"], "us_on_generic_mix": generic["generic_mix"],
+        "in_update_us": generic["env_step_in_update_us"],
         "ptxas": es["ptxas"], **es["launch_shape"]})
+    rs = es["reset"]
+    fresh = rs[f"fresh {RESET_ENVS}"]
+    kernels.append({
+        "name": "env_reset", "route": "cuda", "source": policy_src,
+        "replaces": "balatro_gym_tpu/engine/full_env.py:163",
+        "replaces_note": "the engine's reset, XLA in the reference (step_autoreset's at "
+                         "balatro_gym_tpu/engine/full_env.py:905): no Pallas kernel",
+        "launches": generic["launches_main_path"]["env_reset"],
+        "imitation_launches": imitation["bc"]["launches_main_path"]["env_reset"],
+        "a2c_launches": learners["a2c"]["launches_main_path"]["env_reset"],
+        "dqn_launches": learners["dqn"]["launches_main_path"]["env_reset"],
+        "max_abs_err": 0.0, "ms": rs["autoreset"]["ms"], "ms_from": "events behind a sleep",
+        "plain_ms": rs["autoreset"]["plain_ms"], "call_ms": rs["autoreset"]["call_ms"],
+        "shape": [STEP_ENVS], "masked": rs["autoreset"]["masked"],
+        "modes": {what: {k: v for k, v in r.items() if k != "work"}
+                  for what, r in rs.items() if what != "shape"},
+        "fresh_ms": fresh["ms"], "fresh_plain_ms": fresh["plain_ms"],
+        "fresh_shape": [RESET_ENVS], "fresh_reset_call_ms": fresh["call_ms"],
+        "fresh_bound_ms": bound(*fresh["work"], alu["rate"])[0], **rs["shape"]})
     kernels.append({
         "name": "hand_histograms", "route": "cuda", "source": src + "hand_histograms.cu",
         "replaces": "balatro_gym_tpu/ops/pallas_kernels.py:44", "launches": hist["launches"],

@@ -1,7 +1,8 @@
-"""The flagship engine's step kernel (``env_step_kernel``) and the paths on
-it (``full_env.step``, ``step_autoreset``, the policy inputs, the generic
-PPO rollout, evaluation, the Gym shell) against their plain versions, on
-the card.
+"""The flagship engine's step and reset kernels (``env_step_kernel`` in
+each launch form, ``env_reset_kernel``) and the paths on them
+(``full_env.step``, ``step_autoreset``, ``autoreset``, ``reset``, the policy
+inputs, the generic PPO rollout, evaluation, the Gym shell) against their
+plain versions and their CPU forms, on the card.
 
 These tests need a card and skip where torch sees none. The machine with
 the card has no JAX, and tests/conftest.py imports it, so this file imports
@@ -28,7 +29,7 @@ from balatro_gym_tpu_torch.train.networks import ActorCritic
 
 pytestmark = pytest.mark.cuda
 
-SIZES = (1, 31, 33, 257, 8192, 8193)      # 32-thread blocks
+SIZES = (1, 31, 33, 257, 8192, 8193)      # partial blocks of 32-256 envs
 LOG1P_ROW = FP.OBS_DIM - 6
 
 
@@ -72,29 +73,108 @@ def test_env_step_kernel_equals_plain(dev, n):
 
 
 def test_env_step_kernel_shape(dev):
+    """Each launch form's block and shared memory (888 B a State slot, a
+    class byte and two 2-byte places a block env); the form the port
+    launches at most 72 registers and 160 B of stack, the parent shape's;
+    K3a's shape as before."""
+    for form, (block, _, _, _) in FP.ENV_STEP_FORMS.items():
+        shape = FP.env_step_kernel_shape(form)
+        assert shape["block"] == block and shape["shared_bytes"] == block * (888 + 5), shape
     shape = FP.env_step_kernel_shape()
-    assert shape["block"] == 32 and shape["shared_bytes"] == 32 * 888, shape
-    assert shape == {**FP.step_kernel_shape(), "registers": shape["registers"],
-                     "stack_bytes": shape["stack_bytes"]}
+    assert shape["registers"] <= 72 and shape["stack_bytes"] <= 160, shape
+    k3a = FP.step_kernel_shape()
+    assert k3a["block"] == 32 and k3a["shared_bytes"] == 32 * 888, k3a
+    reset = FP.env_reset_kernel_shape()
+    assert reset["block"] == 256 and reset["shared_bytes"] == 8 * (888 + 64 * 8), reset
+
+
+def single_class_batches(n, dev, seed):
+    st, rng = battery(2048, dev, seed)
+    pool = []
+    for _ in range(8):
+        pool.append(F.pack_full_state(st))
+        a = torch.as_tensor(BAT.sample_legal(FE.action_mask(st).cpu().numpy(), rng), device=dev)
+        st, _, _ = FE.step_autoreset(st, a)
+    return BAT.class_batches(pool, n, rng)
+
+
+@pytest.mark.parametrize("n", (257, 8192))
+def test_env_step_forms_on_single_class_batches(dev, n):
+    """Every launch form of the kernel on each batch whose envs all take
+    one branch class, against the plain no-reset step."""
+    batches = single_class_batches(n, dev, n)
+    assert set(batches) == {name for name, _, _ in BAT.ACTION_CLASSES}
+    for name, (p, a) in batches.items():
+        want = FP.env_step_rows_reference(p, a)
+        for form in FP.ENV_STEP_FORMS:
+            assert_packed_step(FP.env_step_fused(p, a, device=dev, form=form), want,
+                               f"{name} {form}")
+
+
+def reset_mask(kind, n, dev):
+    env = torch.arange(n, device=dev)
+    return {"all": env >= 0, "none": env < 0, "alternating": env % 2 == 1}[kind]
+
+
+@pytest.mark.parametrize("kind", ("all", "none", "alternating"))
+@pytest.mark.parametrize("n", (1, 31, 33, 257, 8193))
+def test_env_reset_kernel_equals_plain(dev, n, kind):
+    """``env_reset_fused`` in both modes (each env's fold_in(key, step
+    count); given keys) on a mid-game state, in place, against
+    ``env_reset_rows_reference``; one launch each."""
+    st, rng = battery(n, dev, n + 1)
+    for _ in range(3):
+        a = torch.as_tensor(BAT.sample_legal(FE.action_mask(st).cpu().numpy(), rng), device=dev)
+        st, _, _ = FE.step(st, a)
+    packed, mask = F.pack_full_state(st), reset_mask(kind, n, dev)
+    keys = torch.stack(KR.split_child(*KR.seed_key(n, device=dev), torch.arange(n, device=dev)),
+                       -1)
+    for k in (None, keys):
+        rows = {name: v.clone() for name, v in packed.items()}
+        n0 = FP.env_reset_fused.launches
+        got = FP.env_reset_fused(rows, mask, k, device=dev)
+        assert FP.env_reset_fused.launches == n0 + 1
+        assert all(got[name] is rows[name] for name in rows)
+        want = FP.env_reset_rows_reference(packed, mask, k)
+        for name in rows:
+            assert torch.equal(rows[name], want[name]), (name, k is None)
 
 
 def test_engine_step_and_autoreset_on_the_card(dev):
-    """``full_env.step`` launches the kernel and equals the plain no-reset
-    step; ``step_autoreset`` equals it with the engine's reset merged."""
+    """``full_env.step`` launches the step kernel and equals the plain
+    no-reset step; ``step_autoreset`` launches it and the reset kernel and
+    equals the plain step with the engine's torch reset merged; each equals
+    its CPU form, as ``autoreset`` and ``reset(keys)`` do."""
     st, rng = battery(1024, dev, 3)
+    st.ante = torch.where(torch.arange(1024, device=dev) % 9 == 4, 101, st.ante)
     for t in range(8):
         a = torch.as_tensor(BAT.sample_legal(FE.action_mask(st).cpu().numpy(), rng), device=dev)
-        n0 = FP.env_step_fused.launches
+        n0 = (FP.env_step_fused.launches, FP.env_reset_fused.launches)
         s1, r1, d1 = FE.step(st, a)
-        assert FP.env_step_fused.launches == n0 + 1
+        assert (FP.env_step_fused.launches, FP.env_reset_fused.launches) == (n0[0] + 1, n0[1])
         s, r, d = F._step(F._load(F.pack_full_state(st)), a, autoreset=False)
         assert F.states_equal(s1, F.unpack_full_state(F._store(s))) == []
         assert torch.equal(r1, r) and torch.equal(d1, d)
         s2, r2, d2 = FE.step_autoreset(st, a)
+        assert (FP.env_step_fused.launches, FP.env_reset_fused.launches) == (n0[0] + 2, n0[1] + 1)
         k1, k2 = KR.fold_in(s1.key[:, 0], s1.key[:, 1], s1.step_count.to(torch.int64))
-        want = FE.where_envs(d1, FE.reset(torch.stack([k1, k2], -1)), s1)
+        want = FE.where_envs(d1, FE.reset_reference(torch.stack([k1, k2], -1)), s1)
         assert F.states_equal(s2, want) == [] and torch.equal(r2, r1) and torch.equal(d2, d1)
+        cpu = FE.step_autoreset(to_cpu(st), a.cpu())
+        assert F.states_equal(to_cpu(s2), cpu[0]) == [] and torch.equal(d2.cpu(), cpu[2])
+        assert F.states_equal(to_cpu(FE.autoreset(s1, d1)), FE.autoreset(to_cpu(s1), d1.cpu())) == []
+        assert int(d1.sum()) > 0 or t > 0
         st = s2
+    keys = torch.stack(KR.split_child(*KR.seed_key(5, device=dev), torch.arange(1000, device=dev)),
+                       -1)
+    n0 = FP.env_reset_fused.launches
+    fresh = FE.reset(keys)
+    assert FP.env_reset_fused.launches == n0 + 1
+    assert F.states_equal(to_cpu(fresh), FE.reset(keys.cpu())) == []
+
+
+def to_cpu(st):
+    return type(st)(**{k: v.cpu() for k, v in vars(st).items()})
 
 
 def test_policy_inputs_launch_k3b(dev):
@@ -116,11 +196,12 @@ def test_generic_update_launches_the_kernels(dev):
     cfg = TP.PPOConfig(n_envs=256, rollout_len=4, epochs=1, minibatches=2, hidden=(64,))
     init_fn, update_fn, _ = TP.make_ppo(TP.full_env_hooks(), cfg, device=dev)
     ts = init_fn([int(w) for w in KR.seed_key(0, device="cpu")])
-    n0 = (FP.env_step_fused.launches, FP.observe_fused.launches)
+    n0 = (FP.env_step_fused.launches, FP.observe_fused.launches, FP.env_reset_fused.launches)
     ts, metrics = update_fn(ts)
     torch.cuda.synchronize()
     assert FP.env_step_fused.launches - n0[0] == cfg.rollout_len
     assert FP.observe_fused.launches - n0[1] == 2 * (cfg.rollout_len + 1)
+    assert FP.env_reset_fused.launches - n0[2] == cfg.rollout_len
     assert all(np.isfinite(float(v)) for v in metrics.values())
 
 
