@@ -1305,12 +1305,14 @@ __device__ void load_state(State& s, const int* __restrict__ cards_in,
   }
 }
 
-// A State into env e's packed rows; hand rows 8-9 are written as -1.
-__device__ void store_state(const State& s, int* __restrict__ cards_out,
-                            int* __restrict__ ints_out, uint32_t* __restrict__ rng_out,
-                            int e, size_t B) {
-#define OUT(r) ints_out[(size_t)(r) * B + e]
-  for (int d = 0; d < kDeck; ++d) {
+// A State into env e's packed rows, in three pieces: the card rows of deck
+// slots d0 to d1 - 1 (store_cards), the int rows with hand rows 8-9
+// written as -1 (store_ints), the rng rows (store_rng). store_state
+// stores them all; the engine's reset stores kStoreParts parts of a
+// block's envs, a part a warp (store_part).
+__device__ __forceinline__ void store_cards(const State& s, int* __restrict__ cards_out, int e,
+                                            size_t B, int d0, int d1) {
+  for (int d = d0; d < d1; ++d) {
     cards_out[(size_t)(0 * kDeck + d) * B + e] = s.rk[d];
     cards_out[(size_t)(1 * kDeck + d) * B + e] = s.su[d];
     cards_out[(size_t)(2 * kDeck + d) * B + e] = s.en[d];
@@ -1318,6 +1320,11 @@ __device__ void store_state(const State& s, int* __restrict__ cards_out,
     cards_out[(size_t)(4 * kDeck + d) * B + e] = s.sl[d];
     cards_out[(size_t)(5 * kDeck + d) * B + e] = bit64(s.al, d);
   }
+}
+
+__device__ __forceinline__ void store_ints(const State& s, int* __restrict__ ints_out, int e,
+                                           size_t B) {
+#define OUT(r) ints_out[(size_t)(r) * B + e]
   for (int p = 0; p < kHand; ++p) {
     OUT(R_HIDX + p) = s.hidx[p];
     OUT(R_SEL + p) = (s.sel >> p) & 1u;
@@ -1349,9 +1356,36 @@ __device__ void store_state(const State& s, int* __restrict__ cards_out,
   OUT(S_HPT) = s.hpt; OUT(S_HPA) = s.hpa; OUT(S_JSOLD) = s.jsold;
   OUT(S_DONE) = s.done; OUT(S_STEPC) = s.sc;
 #undef OUT
+}
+
+__device__ __forceinline__ void store_rng(const State& s, uint32_t* __restrict__ rng_out, int e,
+                                          size_t B) {
   rng_out[e] = s.key.k0;
   rng_out[B + e] = s.key.k1;
   for (int k = 0; k < kCtr; ++k) rng_out[(size_t)(2 + k) * B + e] = s.ctr[k];
+}
+
+__device__ void store_state(const State& s, int* __restrict__ cards_out,
+                            int* __restrict__ ints_out, uint32_t* __restrict__ rng_out,
+                            int e, size_t B) {
+  store_cards(s, cards_out, e, B, 0, kDeck);
+  store_ints(s, ints_out, e, B);
+  store_rng(s, rng_out, e, B);
+}
+
+// The parts: the card rows of a quarter of the deck's slots each (96
+// rows), then the int rows (132), then the rng rows (18).
+constexpr int kStoreParts = 6;
+
+__device__ __forceinline__ void store_part(const State& s, int part, int* __restrict__ cards_out,
+                                           int* __restrict__ ints_out,
+                                           uint32_t* __restrict__ rng_out, int e, size_t B) {
+  if (part < 4)
+    store_cards(s, cards_out, e, B, part * (kDeck / 4), (part + 1) * (kDeck / 4));
+  else if (part == 4)
+    store_ints(s, ints_out, e, B);
+  else
+    store_rng(s, rng_out, e, B);
 }
 
 }  // namespace

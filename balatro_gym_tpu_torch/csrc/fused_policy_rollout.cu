@@ -1,8 +1,8 @@
 // Policy-collection kernels of the flagship full-game env, for Hopper
 // (sm_90a): one env step with the next step's policy inputs (K3a), the
 // policy inputs of a state (K3b), the categorical sampler between the
-// policy and the step, the engine's step without reset (env_step_kernel,
-// with its class pass) and the engine's reset (env_reset_kernel).
+// policy and the step, the engine's step without reset (env_step_kernel)
+// and the engine's reset (env_reset_kernel).
 //
 // Replaces:
 // * K3a: balatro_gym_tpu/ops/fused_policy_rollout.py:174 _kernel_step, one
@@ -67,21 +67,23 @@
 // take, one after another: play (scoring, then a beat's shop generation of
 // 151 hashes in one chain, or a draw) ~70 us, a shop generation alone ~52,
 // a consumable ~46, the rest ~20-25, the load and store alone ~19 (PERF.md).
-// So each block steps its envs in warps of one branch group
-// (env_step_kernel's phases below), State slots in dynamic shared memory as
-// K3a's, envs_per_block of them (cudaFuncSetAttribute on the first launch
-// on a device); and the shop generation, which three branches reach, runs
-// once a warp after the branches join (step's kJoinShop), where a warp ran
-// it once a branch. A class pass can order the whole batch by class first
-// (blocks then gather their columns): the A/B's other form.
+// So each block of kEnvStepBlock envs steps them in warps of one branch
+// group (env_step_kernel's phases below), State slots in dynamic shared
+// memory as K3a's (cudaFuncSetAttribute on the first launch on a device);
+// and the shop generation, which three branches reach, runs once a warp
+// after the branches join (step's kJoinShop), where a warp ran it once a
+// branch. The other forms measured (K3a's shape, 128-env blocks, a class
+// pass ordering the whole batch first) were slower (PERF.md).
 //
-// env_reset_kernel, one warp an env: its lanes draw the 52 words of the
-// engine's permutation shuffle, two a lane, and sort the (word, index)
-// keys with a bitonic network in shared memory, one compare-exchange a lane
-// a stage; lane 0 writes the other fields and stores the env's rows. What
-// bounds it: 2,148 B an env that resets, 56 hashes and the sort's 672
-// compare-exchanges; the autoreset mode resets the few envs that ended, and
-// a warp whose env does not reset returns at once.
+// env_reset_kernel, one warp an env and kResetEnvs envs a block: a warp's
+// lanes draw the 52 words of the engine's permutation shuffle, two a lane,
+// and sort the (word, index) keys with a bitonic network in shared memory,
+// one compare-exchange a lane a stage; lane 0 writes the other fields. Then
+// the block's warps store its envs' rows together, a lane an env, so that
+// each row's store is one coalesced line. What bounds it: 2,148 B an env
+// that resets, 56 hashes and the sort's 672 compare-exchanges; the
+// autoreset mode resets the few envs that ended, and a block none of whose
+// envs resets returns at once.
 //
 // K3b, kObserveGroups threads an env. One thread an env in 128-thread
 // blocks left 68 of the 132 SMs idle at 8192 envs, and each thread read all
@@ -151,10 +153,9 @@ constexpr int kObs = 189, kActions = 60;
 // K3a's launch shape (see above).
 constexpr int kStepBlock = 32;
 constexpr size_t kStepSmem = kStepBlock * sizeof(State);
-// The engine's step: at most kEnvStepMax envs a block (the wrapper's
-// choice); the class pass kClassBlock a block. The engine's reset:
-// kResetEnvs envs (warps) a block.
-constexpr int kEnvStepMax = 128, kClassBlock = 256, kResetEnvs = 8;
+// The engine's step: kEnvStepBlock envs a block. The engine's reset:
+// kResetEnvs envs (warps) a block, one a lane when it stores.
+constexpr int kEnvStepBlock = 64, kResetEnvs = 32;
 // K3b's: kObserveJobs load jobs of an env (see observe_load) shared by its
 // kObserveGroups threads.
 constexpr int kObserveEnvs = 32, kObserveGroups = 32, kObserveJobs = kHand + 6;
@@ -357,11 +358,10 @@ policy_step_kernel(const int* __restrict__ cards_in, const int* __restrict__ int
 }
 
 // The engine's step: K3a's step without the autoreset, the observation or
-// the mask, envs_per_block envs a block, in four phases split by
+// the mask, kEnvStepBlock envs a block, in four phases split by
 // __syncthreads:
 // * classify: thread t reads the fields branch_class reads of the block's
-//   env t (or order[t]: see the class pass) into State slot t and writes
-//   its branch class (0 for every env where the block does not regroup);
+//   env t into State slot t and writes its branch class;
 // * place: thread t finds env t's place p in the block's run order and
 //   loads the env into State slot p with load_state (a warp's row loads
 //   coalesce);
@@ -371,15 +371,13 @@ policy_step_kernel(const int* __restrict__ cards_in, const int* __restrict__ int
 // The run order: the block's envs in class order, but each of the four
 // branch groups (branch_group) starts on a warp, the gap before it filled
 // with envs of the cheapest classes (the order's tail). A warp then runs
-// one group's branches, and the gaps' envs cost it little. With kJoinShop
-// the shop generation runs once a warp, after its lanes' branches join.
+// one group's branches, and the gaps' envs cost it little; the shop
+// generation runs once a warp, after its lanes' branches join (kJoinShop).
 // The slots, the classes, each env's place and each place's env lie in
-// dynamic shared memory (env_step_smem). Each env's result depends on its
+// dynamic shared memory (kEnvStepSmem). Each env's result depends on its
 // own column only, so an order of stepping changes no bit.
-constexpr size_t env_step_smem(int envs) {
-  return (size_t)envs * (sizeof(State) + 1 + 2 * sizeof(int16_t));
-}
-static_assert(env_step_smem(kEnvStepMax) <= 232448, "a block's shared memory, 227 KB");
+constexpr size_t kEnvStepSmem = kEnvStepBlock * (sizeof(State) + 1 + 2 * sizeof(int16_t));
+static_assert(kEnvStepSmem <= 232448, "a block's shared memory, 227 KB");
 
 struct EnvStepSmem {
   State* slots;
@@ -388,15 +386,11 @@ struct EnvStepSmem {
   int16_t* env_at;   // place p's env
 };
 
-__device__ __forceinline__ EnvStepSmem env_step_smem_of(unsigned char* base, int envs) {
+__device__ __forceinline__ EnvStepSmem env_step_smem_of(unsigned char* base) {
   State* slots = reinterpret_cast<State*>(base);
-  uint8_t* cls = reinterpret_cast<uint8_t*>(slots + envs);
-  int16_t* place = reinterpret_cast<int16_t*>(cls + envs);
-  return {slots, cls, place, place + envs};
-}
-
-__device__ __forceinline__ int env_of(const int* __restrict__ order, int i) {
-  return order ? order[i] : i;
+  uint8_t* cls = reinterpret_cast<uint8_t*>(slots + kEnvStepBlock);
+  int16_t* place = reinterpret_cast<int16_t*>(cls + kEnvStepBlock);
+  return {slots, cls, place, place + kEnvStepBlock};
 }
 
 // The fields branch_class reads, from env e's packed int rows.
@@ -414,29 +408,23 @@ __device__ void load_class_fields(State& s, const int* __restrict__ ints, int e,
 
 __device__ __forceinline__ void env_step_classify(EnvStepSmem sm,
                                                   const int* __restrict__ ints_in,
-                                                  const int* __restrict__ actions,
-                                                  const int* __restrict__ order, int regroup,
-                                                  int t, int base, int n_envs) {
-  const int i = base + t;
-  if (i >= n_envs) {
+                                                  const int* __restrict__ actions, int t,
+                                                  int base, int n_envs) {
+  const int e = base + t;
+  if (e >= n_envs) {
     sm.cls[t] = kBranchClasses;      // past the last env: ranked last
     return;
   }
-  if (!regroup) {
-    sm.cls[t] = 0;
-    return;
-  }
-  const int e = env_of(order, i);
   load_class_fields(sm.slots[t], ints_in, e, (size_t)n_envs);
   sm.cls[t] = (uint8_t)branch_class(sm.slots[t], actions[e]);
 }
 
 __device__ __forceinline__ int round_up32(int x) { return (x + 31) & ~31; }
 
-// Env t's place: its stable rank r in class order, moved as the run order
-// wants (see above). n0-n3: the block's envs of each group; the gaps after
-// groups 0, 1 and 2 take the last envs of group 3, in that order from its
-// end.
+// Env t's place among a block's `envs` envs: its stable rank r in class
+// order, moved as the run order wants (see above). n0-n3: the block's envs
+// of each group; the gaps after groups 0, 1 and 2 take the last envs of
+// group 3, in that order from its end.
 __device__ __forceinline__ int env_step_place_of(const uint8_t* cls, int t, int envs) {
   static_assert(kBranchGroups == 4, "the place of an env in four groups");
   const int c = cls[t];
@@ -467,176 +455,80 @@ __device__ __forceinline__ int env_step_place_of(const uint8_t* cls, int t, int 
 __device__ __forceinline__ void env_step_place(EnvStepSmem sm,
                                                const int* __restrict__ cards_in,
                                                const int* __restrict__ ints_in,
-                                               const uint32_t* __restrict__ rng_in,
-                                               const int* __restrict__ order, int t, int base,
-                                               int envs, int n_envs) {
-  const int p = env_step_place_of(sm.cls, t, envs);
+                                               const uint32_t* __restrict__ rng_in, int t,
+                                               int base, int n_envs) {
+  const int p = env_step_place_of(sm.cls, t, kEnvStepBlock);
   sm.place[t] = (int16_t)p;
   sm.env_at[p] = (int16_t)t;
   if (base + t < n_envs)
-    load_state(sm.slots[p], cards_in, ints_in, rng_in, env_of(order, base + t),
-               (size_t)n_envs);
+    load_state(sm.slots[p], cards_in, ints_in, rng_in, base + t, (size_t)n_envs);
 }
 
-// One env's step with its outputs (and, where tr is given, its clock
-// trace), kept out of the kernel's body: inlined there, it cost the load
-// phase its batched loads (SASS: each row's load waited for the previous
-// row's shared store; the load phase took ~56 k cycles against ~30 k,
-// PERF.md). It writes its outputs itself, so that no value of the caller's
-// lives across the call.
-template <bool kJoinShop>
+// One env's step with its outputs, kept out of the kernel's body: inlined
+// there, it cost the load phase its batched loads (SASS: each row's load
+// waited for the previous row's shared store; the load phase took ~56 k
+// cycles against ~30 k, PERF.md). It writes its outputs itself, so that no
+// value of the caller's lives across the call.
 __device__ __noinline__ void env_step_one(State& s, int a, const float* __restrict__ ft,
                                           float* __restrict__ reward,
-                                          uint8_t* __restrict__ done_out,
-                                          long long* __restrict__ tr) {
-  if (tr) tr[0] = clock64();
+                                          uint8_t* __restrict__ done_out) {
   bool done = false;
-  *reward = step<true, false, kJoinShop>(s, a, ft, done);
+  *reward = step<true, false, true>(s, a, ft, done);
   *done_out = done ? 1 : 0;
-  if (tr) tr[1] = clock64() - tr[0];
 }
 
-template <bool kJoinShop>
 __device__ __forceinline__ void env_step_run(EnvStepSmem sm, const int* __restrict__ actions,
                                              const float* __restrict__ ft,
-                                             const int* __restrict__ order,
                                              float* __restrict__ reward_out,
-                                             uint8_t* __restrict__ done_out,
-                                             long long* __restrict__ trace, int p, int base,
+                                             uint8_t* __restrict__ done_out, int p, int base,
                                              int n_envs) {
-  const int i = base + sm.env_at[p];
-  if (i >= n_envs) return;
-  const int e = env_of(order, i);
-  env_step_one<kJoinShop>(sm.slots[p], actions[e], ft, reward_out + e, done_out + e,
-                          trace ? trace + 3 * e : nullptr);
+  const int e = base + sm.env_at[p];
+  if (e >= n_envs) return;
+  env_step_one(sm.slots[p], actions[e], ft, reward_out + e, done_out + e);
 }
 
 __device__ __forceinline__ void env_step_store(EnvStepSmem sm, int* __restrict__ cards_out,
                                                int* __restrict__ ints_out,
-                                               uint32_t* __restrict__ rng_out,
-                                               const int* __restrict__ order, int t, int base,
+                                               uint32_t* __restrict__ rng_out, int t, int base,
                                                int n_envs) {
   if (base + t >= n_envs) return;
-  store_state(sm.slots[sm.place[t]], cards_out, ints_out, rng_out, env_of(order, base + t),
-              (size_t)n_envs);
+  store_state(sm.slots[sm.place[t]], cards_out, ints_out, rng_out, base + t, (size_t)n_envs);
 }
 
-// The second bound caps registers at 65,536 / (kEnvStepMax x 7), so 72 (the
-// parent shape's own count): with a second bound of 1 ptxas took 218, with
+// The second bound caps registers at 65,536 / (kEnvStepBlock x 14), so 72
+// (K3a's shape's own count): with a second bound of 1 ptxas took 218, with
 // 256 threads and none 64 with spills (PERF.md).
-template <bool kJoinShop>
-__global__ void __launch_bounds__(kEnvStepMax, 7)
+__global__ void __launch_bounds__(kEnvStepBlock, 14)
 env_step_kernel(const int* __restrict__ cards_in, const int* __restrict__ ints_in,
                 const uint32_t* __restrict__ rng_in, const int* __restrict__ actions,
                 const float* __restrict__ ft, int* __restrict__ cards_out,
                 int* __restrict__ ints_out, uint32_t* __restrict__ rng_out,
-                float* __restrict__ reward_out, uint8_t* __restrict__ done_out,
-                const int* __restrict__ order, int regroup, long long* __restrict__ trace,
-                int n_envs) {
-  const int envs = blockDim.x, t = threadIdx.x, base = blockIdx.x * envs;
-  // the trace's clock readings go to the trace at once, so no register
-  // holds one across the phases
-  if (trace && base + t < n_envs) trace[3 * env_of(order, base + t) + 2] = clock64();
-  const EnvStepSmem sm = env_step_smem_of(k3a_slots, envs);
-  env_step_classify(sm, ints_in, actions, order, regroup, t, base, n_envs);
+                float* __restrict__ reward_out, uint8_t* __restrict__ done_out, int n_envs) {
+  const int t = threadIdx.x, base = blockIdx.x * kEnvStepBlock;
+  const EnvStepSmem sm = env_step_smem_of(k3a_slots);
+  env_step_classify(sm, ints_in, actions, t, base, n_envs);
   __syncthreads();
-  env_step_place(sm, cards_in, ints_in, rng_in, order, t, base, envs, n_envs);
+  env_step_place(sm, cards_in, ints_in, rng_in, t, base, n_envs);
   __syncthreads();
-  env_step_run<kJoinShop>(sm, actions, ft, order, reward_out, done_out, trace, t, base, n_envs);
+  env_step_run(sm, actions, ft, reward_out, done_out, t, base, n_envs);
   __syncthreads();
-  env_step_store(sm, cards_out, ints_out, rng_out, order, t, base, n_envs);
-  if (trace && base + t < n_envs) {
-    // the env this thread stored: its step began this many cycles after
-    // this thread's entry, and its store ended this many after it
-    const int e = env_of(order, base + t);
-    const long long entry = trace[3 * e + 2];
-    trace[3 * e] -= entry;
-    trace[3 * e + 2] = clock64() - entry;
-  }
-}
-
-// The class pass: the engine's envs in a stable order of branch class, for
-// env_step_kernel to step a block of them whatever their place in
-// the batch. A warp's loads and stores then gather columns from across the
-// batch. Two launches of kClassBlock envs a block: the classes with each
-// block's counts, then the order.
-// Classes: thread t writes env base + t's class, to cls and to the block's
-// shared copy; then thread c < kBranchClasses counts the block's envs of
-// class c.
-__device__ void class_of_env(uint8_t* block_cls, const int* __restrict__ ints,
-                             const int* __restrict__ actions, uint8_t* __restrict__ cls,
-                             int t, int base, int n_envs) {
-  const int e = base + t;
-  if (e >= n_envs) {
-    block_cls[t] = kBranchClasses;
-    return;
-  }
-  State s;
-  load_class_fields(s, ints, e, (size_t)n_envs);
-  block_cls[t] = cls[e] = (uint8_t)branch_class(s, actions[e]);
-}
-
-__device__ void class_count(const uint8_t* block_cls, int* __restrict__ counts, int t,
-                            int block) {
-  if (t >= kBranchClasses) return;
-  int n = 0;
-  for (int u = 0; u < kClassBlock; ++u) n += block_cls[u] == t;
-  counts[block * kBranchClasses + t] = n;
-}
-
-__global__ void __launch_bounds__(kClassBlock)
-env_class_kernel(const int* __restrict__ ints, const int* __restrict__ actions,
-                 uint8_t* __restrict__ cls, int* __restrict__ counts, int n_envs) {
-  __shared__ uint8_t block_cls[kClassBlock];
-  const int t = threadIdx.x;
-  class_of_env(block_cls, ints, actions, cls, t, blockIdx.x * kClassBlock, n_envs);
-  __syncthreads();
-  class_count(block_cls, counts, t, blockIdx.x);
-}
-
-// Order: thread c < kBranchClasses finds where the block's envs of class c
-// start (the envs of every lower class, then those of class c in the
-// blocks before), and each thread copies its env's class; then env base + t
-// goes to that start plus its rank among the block's envs of its class.
-__device__ void order_starts(int* start, uint8_t* block_cls, const uint8_t* __restrict__ cls,
-                             const int* __restrict__ counts, int t, int block, int n_blocks,
-                             int n_envs) {
-  const int e = block * kClassBlock + t;
-  block_cls[t] = e < n_envs ? cls[e] : kBranchClasses;
-  if (t >= kBranchClasses) return;
-  int at = 0;
-  for (int b = 0; b < n_blocks; ++b)
-    for (int c = 0; c <= t; ++c)
-      if (c < t || b < block) at += counts[b * kBranchClasses + c];
-  start[t] = at;
-}
-
-__device__ void order_write(const int* start, const uint8_t* block_cls, int* __restrict__ order,
-                            int t, int block, int n_envs) {
-  const int e = block * kClassBlock + t;
-  if (e >= n_envs) return;
-  const int c = block_cls[t];
-  int r = 0;
-  for (int u = 0; u < t; ++u) r += block_cls[u] == c;
-  order[start[c] + r] = e;
-}
-
-__global__ void __launch_bounds__(kClassBlock)
-env_order_kernel(const uint8_t* __restrict__ cls, const int* __restrict__ counts,
-                 int* __restrict__ order, int n_envs) {
-  __shared__ int start[kBranchClasses];
-  __shared__ uint8_t block_cls[kClassBlock];
-  const int t = threadIdx.x;
-  order_starts(start, block_cls, cls, counts, t, blockIdx.x, gridDim.x, n_envs);
-  __syncthreads();
-  order_write(start, block_cls, order, t, blockIdx.x, n_envs);
+  env_step_store(sm, cards_out, ints_out, rng_out, t, base, n_envs);
 }
 
 // The engine's reset (the port's full_env.reset and autoreset): a fresh
 // episode, written in place on the packed rows, for each env whose mask
-// byte is set; one warp an env, kResetEnvs envs a block. A warp whose env
-// is not masked returns at once. The episode's key is keys[e] where keys
-// is given, else fold_in(key, step count) of the env's own rows.
+// byte is set; kResetEnvs envs a block, in two phases split by
+// __syncthreads:
+// * shuffle: warp w writes env w's fresh episode into State slot w
+//   (reset_slot), where the env is masked;
+// * store: warp p < kStoreParts stores part p of the rows (store_part) of
+//   the block's masked envs, lane l env l, so that a row's store is one
+//   128-byte line.
+// A block none of whose envs is masked returns at once. The episode's key
+// is keys[e] where keys is given, else fold_in(key, step count) of the
+// env's own rows.
+static_assert(kResetEnvs == 32 && kStoreParts <= kResetEnvs, "a lane an env, a warp a part");
+
 __device__ __forceinline__ TfKey reset_key(const int* __restrict__ ints,
                                            const uint32_t* __restrict__ rng,
                                            const uint32_t* __restrict__ keys, int e, size_t B) {
@@ -644,26 +536,28 @@ __device__ __forceinline__ TfKey reset_key(const int* __restrict__ ints,
   return tf_fold_in({rng[e], rng[B + e]}, (uint32_t)ints[(size_t)S_STEPC * B + e]);
 }
 
-// Env e's fresh episode by one warp, over its State slot s and 64 sort
-// keys v: each lane draws 2 of the words, the warp sorts them (sort64),
-// each lane deals 2 deck slots, and lane 0 sets the other fields and
-// stores the env's rows. lanes(f) as in sort64.
+__device__ __forceinline__ bool reset_masked(const uint8_t* __restrict__ mask, int e,
+                                             int n_envs) {
+  return e < n_envs && mask[e];
+}
+
+// A fresh episode with key `key` in slot s by one warp, over 64 sort keys
+// v: each lane draws 2 of the words, the warp sorts them (sort64), each
+// lane deals 2 deck slots, and lane 0 sets the other fields and the key.
+// lanes(f) as in sort64.
 template <typename Lanes>
-__device__ void reset_env(State& s, uint64_t* v, TfKey key, int* __restrict__ cards,
-                          int* __restrict__ ints, uint32_t* __restrict__ rng, int e, size_t B,
-                          Lanes&& lanes) {
+__device__ void reset_slot(State& s, uint64_t* v, TfKey key, Lanes&& lanes) {
   const TfKey sub = engine_shuffle_key(key);
   lanes([&](int l) {
     v[l] = engine_deck_key(sub, l);
     v[l + 32] = engine_deck_key(sub, l + 32);
   });
   sort64(v, lanes);
-  lanes([&](int l) { reset_deal(s, v, l); });
   lanes([&](int l) {
+    reset_deal(s, v, l);
     if (l != 0) return;
     reset_fields(s);
     s.key = key;
-    store_state(s, cards, ints, rng, e, B);
   });
 }
 
@@ -672,20 +566,33 @@ struct ResetSmem {
   uint64_t keys[kResetEnvs][kDeck];
 };
 
+// The store phase's thread (part p, lane l): env base + l's part p, where
+// the env is masked.
+__device__ __forceinline__ void reset_store(const ResetSmem& sm, int p, int l,
+                                            const uint8_t* __restrict__ mask,
+                                            int* __restrict__ cards, int* __restrict__ ints,
+                                            uint32_t* __restrict__ rng, int base, int n_envs) {
+  if (p < kStoreParts && reset_masked(mask, base + l, n_envs))
+    store_part(sm.slots[l], p, cards, ints, rng, base + l, (size_t)n_envs);
+}
+
 __global__ void __launch_bounds__(kResetEnvs * 32)
 env_reset_kernel(int* __restrict__ cards, int* __restrict__ ints, uint32_t* __restrict__ rng,
                  const uint8_t* __restrict__ mask, const uint32_t* __restrict__ keys,
                  int n_envs) {
   __shared__ ResetSmem sm;
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int e = blockIdx.x * kResetEnvs + w;
-  if (e >= n_envs || !mask[e]) return;
-  const size_t B = (size_t)n_envs;
-  const TfKey key = reset_key(ints, rng, keys, e, B);
-  reset_env(sm.slots[w], sm.keys[w], key, cards, ints, rng, e, B, [&](auto f) {
-    f(lane);
-    __syncwarp();
-  });
+  const int base = blockIdx.x * kResetEnvs, e = base + w;
+  const bool masked = reset_masked(mask, e, n_envs);
+  if (!__syncthreads_or(masked)) return;
+  if (masked)
+    reset_slot(sm.slots[w], sm.keys[w], reset_key(ints, rng, keys, e, (size_t)n_envs),
+               [&](auto f) {
+                 f(lane);
+                 __syncwarp();
+               });
+  __syncthreads();
+  reset_store(sm, w, lane, mask, cards, ints, rng, base, n_envs);
 }
 
 // The sampler's shared memory: the logits and the Gumbel noise of action a
@@ -869,51 +776,28 @@ extern "C" int policy_step_launch(const int* cards_in, const int* ints_in,
 
 // The engine's step: one fed step without autoreset, then the packed state,
 // reward [n_envs] f32 and done [n_envs] u8 (arguments as policy_step_launch's),
-// envs_per_block envs a block (a multiple of 32, at most kEnvStepMax), each
-// block's envs stepped in warps of one branch group where regroup is set,
-// the shop generation joined where join is set (step's kJoinShop). With order
-// given, the class pass runs first and blocks take the envs in its order
-// (cls [n_envs] u8, counts [ceil(n_envs / kClassBlock) * kBranchClasses]
-// i32 and order [n_envs] i32 are the caller's scratch). With trace [n_envs,
-// 3] i64 given, each env's step is timed in SM clock cycles: the cycle its
-// step began after its block's entry (on the SM's own clock), the step's
-// cycles, and the cycles from its block's entry to the end of its store.
-// The kernel's shared-memory limit is set on the first launch on each
-// device.
+// kEnvStepBlock envs a block. The kernel's shared-memory limit is set on
+// the first launch on each device.
 extern "C" int env_step_launch(const int* cards_in, const int* ints_in,
                                const unsigned int* rng_in, const int* actions,
                                const float* ftab, int* cards_out, int* ints_out,
                                unsigned int* rng_out, float* reward, unsigned char* done,
-                               int envs_per_block, int regroup, int join, unsigned char* cls,
-                               int* counts, int* order, long long* trace, int n_envs,
-                               void* stream) {
+                               int n_envs, void* stream) {
   if (n_envs <= 0) return (int)cudaSuccess;
-  if (envs_per_block < 32 || envs_per_block > kEnvStepMax || envs_per_block % 32)
-    return (int)cudaErrorInvalidValue;
-  const auto kernel = join ? env_step_kernel<true> : env_step_kernel<false>;
   static bool ready[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
   if (!ready[dev]) {
-    for (const auto k : {env_step_kernel<false>, env_step_kernel<true>}) {
-      err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)env_step_smem(kEnvStepMax));
-      if (err != cudaSuccess) return (int)err;
-    }
+    err = cudaFuncSetAttribute(env_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kEnvStepSmem);
+    if (err != cudaSuccess) return (int)err;
     ready[dev] = true;
   }
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (order) {
-    const int blocks = (n_envs + kClassBlock - 1) / kClassBlock;
-    env_class_kernel<<<blocks, kClassBlock, 0, st>>>(ints_in, actions, cls, counts, n_envs);
-    env_order_kernel<<<blocks, kClassBlock, 0, st>>>(cls, counts, order, n_envs);
-  }
-  kernel<<<(n_envs + envs_per_block - 1) / envs_per_block, envs_per_block,
-           env_step_smem(envs_per_block), st>>>(
-      cards_in, ints_in, rng_in, actions, ftab, cards_out, ints_out, rng_out, reward, done, order,
-      regroup, trace, n_envs);
+  env_step_kernel<<<(n_envs + kEnvStepBlock - 1) / kEnvStepBlock, kEnvStepBlock, kEnvStepSmem,
+                    (cudaStream_t)stream>>>(cards_in, ints_in, rng_in, actions, ftab, cards_out,
+                                            ints_out, rng_out, reward, done, n_envs);
   return (int)cudaGetLastError();
 }
 
@@ -946,9 +830,8 @@ extern "C" int policy_sample_launch(const float* logits, long long s_env, long l
 extern "C" int policy_step_info(int* out) {
   return kernel_info(policy_step_kernel, kStepBlock, kStepSmem, out);
 }
-extern "C" int env_step_info(int envs_per_block, int join, int* out) {
-  return kernel_info(join ? env_step_kernel<true> : env_step_kernel<false>, envs_per_block,
-                     env_step_smem(envs_per_block), out);
+extern "C" int env_step_info(int* out) {
+  return kernel_info(env_step_kernel, kEnvStepBlock, kEnvStepSmem, out);
 }
 extern "C" int env_reset_info(int* out) {
   return kernel_info(env_reset_kernel, kResetEnvs * 32, 0, out);

@@ -15,16 +15,15 @@ step), and the step also emits the next step's policy inputs.
   launches the sampler: ``jax.random.categorical`` with the log-probability
   of the drawn action. ``env_step_fused`` launches ``env_step_kernel``:
   K3a's step without its autoreset, observation or mask, the engine's own
-  ``step`` (``engine.full_env.step``), which the reference leaves to XLA;
-  its launch forms (``ENV_STEP_FORMS``) differ only in how envs are
-  grouped onto warps. ``env_reset_fused`` launches ``env_reset_kernel``:
-  the engine's ``reset`` (a permutation shuffle, not the kernels' sort) of
-  the masked envs, in place on packed rows. Each counts its launches in
+  ``step`` (``engine.full_env.step``), which the reference leaves to XLA.
+  ``env_reset_fused`` launches ``env_reset_kernel``: the engine's
+  ``reset`` (a permutation shuffle, not the kernels' sort) of the masked
+  envs, in place on packed rows. Each counts its launches in
   ``.launches``.
 * ``step_rows_reference``, ``observe_rows_reference``, ``sample``,
   ``env_step_rows_reference`` and ``env_reset_rows_reference`` are their
-  plain versions, on any device. The
-  step and the mask are the whole-rollout module's
+  plain versions, on any device. The step and the mask are the
+  whole-rollout module's
   (``ops/fused_full_rollout.py``); the observation rows ``_obs_rows``
   mirror the reference's ``_obs_rows`` (the engine's ``observe_vector``)
   op for op.
@@ -181,26 +180,25 @@ def _kernel_lib():
     lib = cuda_build.load("fused_policy_rollout.cu")
     lib.policy_observe_launch.argtypes = [_P] * 5 + [_INT, _P]
     lib.policy_step_launch.argtypes = [_P] * 12 + [_INT, _P]
-    lib.env_step_launch.argtypes = [_P] * 10 + [_INT, _INT, _INT, _P, _P, _P, _P, _INT, _P]
+    lib.env_step_launch.argtypes = [_P] * 10 + [_INT, _P]
     lib.env_reset_launch.argtypes = [_P] * 5 + [_INT, _P]
     lib.policy_sample_launch.argtypes = [_P, _I64, _I64, _INT, _UINT, _UINT, _P, _P, _P]
     infos = (lib.policy_step_info, lib.policy_observe_info, lib.policy_sample_info,
-             lib.env_reset_info)
+             lib.env_step_info, lib.env_reset_info)
     for fn in infos:
         fn.argtypes = [_P]
-    lib.env_step_info.argtypes = [_INT, _INT, _P]
     for fn in (lib.policy_observe_launch, lib.policy_step_launch, lib.policy_sample_launch,
-               lib.env_step_launch, lib.env_reset_launch, lib.env_step_info, *infos):
+               lib.env_step_launch, lib.env_reset_launch, *infos):
         fn.restype = ctypes.c_int
     return lib
 
 
-def _kernel_shape(name, *args):
+def _kernel_shape(name):
     """A kernel's launch shape and what the compiler gave it, on the current
     card: {"block": threads a block, "shared_bytes": shared memory a block,
     "registers": a thread, "stack_bytes": local memory a thread}."""
     out = (ctypes.c_int * 4)()
-    err = getattr(_kernel_lib(), f"{name}_info")(*args, out)
+    err = getattr(_kernel_lib(), f"{name}_info")(out)
     if err != 0:
         raise RuntimeError(f"{name}_info failed: cudaError_t {err}")
     return dict(zip(("block", "shared_bytes", "registers", "stack_bytes"), out))
@@ -211,11 +209,9 @@ def step_kernel_shape():
     return _kernel_shape("policy_step")
 
 
-def env_step_kernel_shape(form=None):
-    """``env_step_kernel``'s launch shape in a launch form (default
-    ``ENV_STEP_FORM``; see ``_kernel_shape``)."""
-    block, _, _, join = ENV_STEP_FORMS[form or ENV_STEP_FORM]
-    return _kernel_shape("env_step", block, int(join))
+def env_step_kernel_shape():
+    """``env_step_kernel``'s launch shape (see ``_kernel_shape``)."""
+    return _kernel_shape("env_step")
 
 
 def env_reset_kernel_shape():
@@ -307,28 +303,11 @@ def step_fused(packed, actions, *, device=None):
 step_fused.launches = 0
 
 
-# env_step_kernel's launch forms: (envs a block, each block's envs stepped
-# in warps of one branch group, the class pass first so that blocks take
-# the envs in class order, the shop generation joined after the step's
-# branches). "parent" is the kernel's first shape, K3a's: 32 envs a block,
-# each stepped by its own thread. env_step_fused launches ENV_STEP_FORM, the
-# choice of chip_smoke.py's A/B (phase 18, PERF.md).
-ENV_STEP_FORMS = {"parent": (32, False, False, False), "parent, joined": (32, False, False, True),
-                  "grouped 64, joined": (64, True, False, True),
-                  "grouped 128, joined": (128, True, False, True),
-                  "class order": (32, False, True, False)}
-ENV_STEP_FORM = "grouped 64, joined"
-_CLASS_BLOCK, _BRANCH_CLASSES = 256, 11       # csrc/fused_policy_rollout.cu, full_step.cuh
-
-
-def env_step_fused(packed, actions, *, device=None, form=None, trace=None):
+def env_step_fused(packed, actions, *, device=None):
     """One fed step of every env without autoreset (``actions`` ``[B]``
-    ids): ``env_step_kernel`` on a card, in launch form ``form`` (default
-    ``ENV_STEP_FORM``), the plain version with ``device="cpu"``. Returns
-    what :func:`env_step_rows_reference` returns. ``trace``, a ``[B, 3]``
-    int64 tensor on the card, receives each env's step timed in SM clock
-    cycles: when it began after its block's entry, how long it took, and
-    when its block's store of it ended."""
+    ids): ``env_step_kernel`` on a card, the plain version with
+    ``device="cpu"``. Returns what :func:`env_step_rows_reference`
+    returns."""
     packed, dev = _placed(packed, (actions,), device)
     actions = torch.as_tensor(actions).to(device=dev, dtype=_I32).contiguous()
     if dev.type == "cpu":
@@ -336,24 +315,13 @@ def env_step_fused(packed, actions, *, device=None, form=None, trace=None):
     _on_card(dev, "env_step_fused")
     n = _check_packed(packed, dev)
     check_arg(actions, "actions", _I32, (n,), dev)
-    if trace is not None:
-        check_arg(trace, "trace", torch.int64, (n, 3), dev)
-    block, regroup, classed, join = ENV_STEP_FORMS[form or ENV_STEP_FORM]
     out = {k: torch.empty_like(v) for k, v in packed.items()}
     reward = torch.empty(n, dtype=_F32, device=dev)
     done = torch.empty(n, dtype=torch.bool, device=dev)
-    scratch = [None] * 3
-    if classed:
-        blocks = (n + _CLASS_BLOCK - 1) // _CLASS_BLOCK
-        scratch = [torch.empty(n, dtype=torch.uint8, device=dev),
-                   torch.empty(blocks * _BRANCH_CLASSES, dtype=_I32, device=dev),
-                   torch.empty(n, dtype=_I32, device=dev)]
     _launch(_kernel_lib().env_step_launch, "env_step", dev,
             packed["cards"].data_ptr(), packed["ints"].data_ptr(), packed["rng"].data_ptr(),
             actions.data_ptr(), FF.float_tables(dev).data_ptr(), out["cards"].data_ptr(),
-            out["ints"].data_ptr(), out["rng"].data_ptr(), reward.data_ptr(), done.data_ptr(),
-            block, int(regroup), int(join), *(t.data_ptr() if t is not None else None
-                                   for t in (*scratch, trace)), n)
+            out["ints"].data_ptr(), out["rng"].data_ptr(), reward.data_ptr(), done.data_ptr(), n)
     env_step_fused.launches += 1
     return out, reward, done
 

@@ -2,7 +2,7 @@
 ``csrc/fused_policy_rollout.cu``, compared on the card in alternating order.
 
     python -m balatro_gym_tpu_torch.ops.policy_kernels_ab tree=balatro_gym_tpu_torch/csrc \\
-        parent=build/parent/balatro_gym_tpu_torch/csrc [--kernels observe,sample,step] \\
+        parent=build/parent/balatro_gym_tpu_torch/csrc [--kernels observe,sample,step,reset] \\
         [--envs 8192] [--rounds 10] [--calls 10]
 
 Each ``LABEL=DIR`` names a directory holding a ``fused_policy_rollout.cu``
@@ -18,12 +18,17 @@ a row-major copy (``row_major``), and those of the same policy in bf16 on
 the normalised observation, as the PPO trainer with ``bf16_compute`` calls
 it (``trainer``); for K3a, the state with actions drawn from the policy
 (``mid``) and the no-autoreset and all-autoreset batches of
-``ops/fused_full_battery.reset_batches``.
+``ops/fused_full_battery.reset_batches``; for the engine's reset
+(``env_reset_kernel``, in builds that have it), the mid-game state with
+one env in 63 masked (``autoreset``: each env's own key, about the share of
+envs that end in a step of the generic rollout) and zeroed rows with every
+env masked and keys given (``fresh``), each reset in place on a copy.
 
 Every build's outputs are first held against the plain versions: K3b bit
 for bit but the ``log1p`` row (1 ulp), the sampler's actions bit for bit
-and log-probs within 1e-6, K3a bit for bit but that row; at ``--envs`` and
-at 257 envs for K3b and the sampler (a partial block). Then, for
+and log-probs within 1e-6, K3a bit for bit but that row, the reset bit
+for bit; at ``--envs`` and at 257 envs for K3b, the sampler and the reset
+(a partial block). Then, for
 ``--rounds`` rounds, each (kernel, input, build) launches ``--calls`` times
 back to back, the builds in turn and in reverse order every other round,
 timed by CUDA events after the card has slept long enough for the host to
@@ -47,6 +52,7 @@ from balatro_gym_tpu_torch.ops import cuda_build
 from balatro_gym_tpu_torch.ops import fused_full_battery as BAT
 from balatro_gym_tpu_torch.ops import fused_full_rollout as FF
 from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
+from balatro_gym_tpu_torch.ops import kernel_rng as KR
 from balatro_gym_tpu_torch.ops.alu_ceiling import card_name
 from balatro_gym_tpu_torch.train.networks import ActorCritic
 from balatro_gym_tpu_torch.train.normalize import init_stats, normalize
@@ -75,6 +81,8 @@ def build(builds: dict) -> dict:
         so.policy_observe_launch.argtypes = [_P] * 5 + [_INT, _P]
         so.policy_step_launch.argtypes = [_P] * 12 + [_INT, _P]
         so.policy_sample_launch.argtypes = [_P, _I64, _I64, _INT, _UINT, _UINT, _P, _P, _P]
+        if hasattr(so, "env_reset_launch"):
+            so.env_reset_launch.argtypes = [_P] * 5 + [_INT, _P]
         out[label] = (so, [ln.replace("ptxas info    :", "").strip() for ln in err.splitlines()
                            if any(w in ln for w in ("Compiling entry", "registers", "spill"))])
     return out
@@ -94,10 +102,15 @@ def inputs(n: int, dev) -> dict:
         trainer = bf16(normalize(init_stats(FP.OBS_DIM, dev), obs), mask)[0]
     key = FP.step_keys(1, 1)[0]
     no_reset, all_reset = BAT.reset_batches(packed)
+    env = torch.arange(n, device=dev)
+    keys = torch.stack(KR.split_child(*KR.seed_key(9, device=dev), env), -1)
+    zeros = {k: torch.zeros_like(v) for k, v in packed.items()}
     return {"packed": packed, "key": key,
             "logits": {"policy": logits, "row_major": logits.contiguous(), "trainer": trainer},
             "step": {"mid": (packed, FP.sample(key, logits)[0]), "no_reset": no_reset,
-                     "all_reset": all_reset}}
+                     "all_reset": all_reset},
+            "reset": {"autoreset": (packed, env % 63 == 5, None),
+                      "fresh": (zeros, env >= 0, keys)}}
 
 
 def launchers(so, inp, dev) -> dict:
@@ -131,6 +144,16 @@ def launchers(so, inp, dev) -> dict:
                 *(t.data_ptr() for t in r[1:]), n, stream),
             lambda r=res: (r[0], r[1], r[2], r[3].T, r[4].T),
             lambda p=p, a=a: FP.step_rows_reference(p, a))
+    if not hasattr(so, "env_reset_launch"):
+        return out
+    for name, (p, m, keys) in inp["reset"].items():
+        rows = {k: v.clone() for k, v in p.items()}
+        words = None if keys is None else FF._w2i(keys).contiguous()
+        out["reset", name] = (
+            lambda r=rows, m=m, w=words: so.env_reset_launch(
+                *(r[k].data_ptr() for k in ("cards", "ints", "rng")), m.data_ptr(),
+                w.data_ptr() if w is not None else None, n, stream),
+            lambda r=rows: r, lambda p=p, m=m, keys=keys: FP.env_reset_rows_reference(p, m, keys))
     return out
 
 
@@ -148,6 +171,8 @@ def agrees(kernel, got, want) -> bool:
     if kernel == "sample":
         return bool(torch.equal(got[0], want[0])) and float(
             (got[1] - want[1]).abs().max()) <= 1e-6
+    if kernel == "reset":
+        return all(torch.equal(got[k], want[k]) for k in ("cards", "ints", "rng"))
     return (all(torch.equal(got[0][k], want[0][k]) for k in ("cards", "ints", "rng"))
             and all(torch.equal(g, w) for g, w in zip(got[1:3], want[1:3]))
             and bool(torch.equal(got[4], want[4])) and _obs_equal(got[3], want[3]))

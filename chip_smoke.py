@@ -141,17 +141,16 @@ non-zero:
     plain rows; the kernel's card time behind a card sleep (median of 5
     rounds of 20 calls), K3a's on the same inputs, the ``step`` and
     ``step_autoreset`` calls' times and the plain step's; by branch class:
-    every launch form of ``env_step_kernel`` (``FP.ENV_STEP_FORMS``: the
-    parent's shape, the grouped blocks, the class order) held against the
-    plain step and timed on batches in which every env takes one branch
-    class (``BAT.class_batches``), no env ends or every env is over, and on
-    the battery's mix; ``env_reset_kernel`` in its autoreset mode on the
+    ``env_step_kernel`` held against the plain step and timed on batches in
+    which every env takes one branch class (``BAT.class_batches``), no env
+    ends or every env is over, on the battery's mix and on each of its
+    classes alone; ``env_reset_kernel`` in its autoreset mode on the
     battery's done envs and in its fresh mode over 8192 and 131072 envs,
     each held against its plain version and timed, with the ``autoreset``
-    and ``reset`` calls; the launch shapes and ptxas lines of both kernels
-    and the class pass, and K2's and K3a's ptxas lines beside those
-    recorded before the step kernel joined their step (``RECORDED_PTXAS``;
-    printed, not held: a redesign changes them);
+    and ``reset`` calls; the launch shapes and ptxas lines of both kernels,
+    and K2's and K3a's ptxas lines beside those recorded before the step
+    kernel joined their step (``RECORDED_PTXAS``; printed, not held: a
+    redesign changes them);
 19. generic PPO: ``make_ppo(full_env_hooks())`` with the ``fast_decay``
     recipe but ``fused_rollout=False``, 8192 x 128, ``ActorCritic(256,
     256)``, 3 updates, the launch counters reset before and read after
@@ -159,9 +158,9 @@ non-zero:
     step and 2 for the last value; K3a and the sampler none); every action
     legal, metrics finite; the median update by CUDA events, its stages,
     and the card's idle share (profiler card time against the unprofiled
-    update); every launch form of ``env_step_kernel`` on the state and
-    actions of the first update's step 64 (the generic mix), held against
-    the plain step and timed;
+    update); ``env_step_kernel`` on the state and actions of the first
+    update's step 64 (the generic mix) and on each of its classes alone,
+    held against the plain step and timed;
 20. evaluate: a greedy anti-loop ``evaluate_policy`` of phase 19's policy,
     1024 episodes x 256 steps on the card (256 step launches, 1 reset);
     its statistics and wall time;
@@ -1275,8 +1274,8 @@ def ptxas_lines(source, kernel):
 def phase_env_step(smi):
     """The engine's step (env_step_kernel) and reset (env_reset_kernel),
     and step_autoreset, against their plain versions along a fed battery;
-    the policy inputs against theirs; the step kernel's launch forms by
-    branch class, and the reset kernel in both modes."""
+    the policy inputs against theirs; the step kernel by branch class, and
+    the reset kernel in both modes."""
     n = STEP_ENVS
     rng = np.random.default_rng(18)
     st = BAT.surgery(FF.rollout_full_rows_reference(4, n, 4, device=DEV)["state"], rng)
@@ -1349,25 +1348,22 @@ def phase_env_step(smi):
     batches = {"idle (action 59)": no_reset, "over (ante 101)": all_reset,
                **BAT.class_batches(pool, n, rng), "battery mix": (packed, a)}
     del pool
-    classes = step_class_table(batches)
-    classes.update(step_class_table(class_splits("battery mix", packed, a),
-                                    ("parent", FP.ENV_STEP_FORM)))
-    traces = [step_trace(packed, a, form) for form in ("parent", FP.ENV_STEP_FORM)]
+    classes = step_class_table({**batches, **class_splits("battery mix", packed, a)})
     reset = reset_timing(after, ended)
-    shapes = {form: FP.env_step_kernel_shape(form) for form in FP.ENV_STEP_FORMS}
-    shape = shapes[FP.ENV_STEP_FORM]
+    reset_err = reset.pop("max_abs_err")
+    shape = FP.env_step_kernel_shape()
     b = bound(n * (2 * PACKED_BYTES + 9), 0)
     ptxas = {k: ptxas_lines(src, k) for k, src in (
         ("fused_full_rollout_kernel", "fused_full_rollout.cu"),
         ("policy_step_kernel", "fused_policy_rollout.cu"))}
     env_ptxas = {k: ptxas_lines("fused_policy_rollout.cu", k) for k in (
-        "env_step_kernel", "env_reset_kernel", "env_class_kernel", "env_order_kernel")}
+        "env_step_kernel", "env_reset_kernel")}
     same = {k: "equal" if lines == RECORDED_PTXAS[k] else "CHANGED"
             for k, lines in ptxas.items()}
     fmt = ", ".join
     log("18 full step", f"ok: {n} envs x {STEP_CHECK_STEPS} steps of the battery "
         f"(coverage {cov}; {counts['illegal']} illegal actions, {counts['ended']} ends): "
-        f"full_env.step (env_step_kernel, form {FP.ENV_STEP_FORM!r}) == plain no-reset step "
+        f"full_env.step (env_step_kernel) == plain no-reset step "
         f"bitwise (packed state, reward, done); step_autoreset (env_step_kernel, then "
         f"env_reset_kernel) == plain step + the engine's torch reset bitwise; env_reset_kernel "
         f"on each step's done envs == its plain version bitwise; observe_vector and "
@@ -1379,20 +1375,18 @@ def phase_env_step(smi):
         f"{call_ms:.3f} ms (samples {fmt(f'{x:.3f}' for x in call_all)}), step_autoreset call "
         f"{auto_ms:.3f} ms (samples {fmt(f'{x:.3f}' for x in auto_all)}); plain no-reset step "
         f"{p_ms:.1f} ms; bound {b[0] * 1e3:.2f} us ({b[1]}: 2 x {PACKED_BYTES} + 9 B an env at "
-        f"{HBM_BYTES_PER_S:.3g} B/s); launch forms (block, regroup, class pass) "
-        f"{FP.ENV_STEP_FORMS} and shapes {shapes}; ptxas {env_ptxas}; "
+        f"{HBM_BYTES_PER_S:.3g} B/s); launch shape {shape}; ptxas {env_ptxas}; "
         + "; ".join(f"{name} {ptxas[k]} ({same[k]} to the recorded {RECORDED_PTXAS[k]})"
                     for name, k in (("K2", "fused_full_rollout_kernel"),
                                     ("K3a", "policy_step_kernel")))
-        + f"; env_step_kernel by branch class and launch form: {class_table_text(classes)}; "
-        f"its clock trace on the battery mix: {'; '.join(map(trace_text, traces))}; "
+        + f"; env_step_kernel by branch class: {class_table_text(classes)}; "
         f"env_reset_kernel: {reset_text(reset)} [{smi}]")
     return {"max_abs_err": max(errs.values()), "ms": k_ms, "ms_rounds": k_all,
-            "classes": classes, "traces": traces, "plain_ms": p_ms, "call_ms": call_ms,
+            "classes": classes, "plain_ms": p_ms, "call_ms": call_ms,
             "step_autoreset_call_ms": auto_ms, "k3a_same_inputs_ms": k3a_ms,
-            "launch_shape": shape, "form": FP.ENV_STEP_FORM, "form_shapes": shapes,
-            "ptxas": env_ptxas, "work": (n * (2 * PACKED_BYTES + 9), 0), "shape": [n],
-            "reset": reset}
+            "launch_shape": shape, "ptxas": env_ptxas,
+            "work": (n * (2 * PACKED_BYTES + 9), 0), "shape": [n], "reset": reset,
+            "reset_max_abs_err": reset_err}
 
 
 # A reset's integer work an env: 56 Threefry hashes (its key's fold_in, the
@@ -1414,9 +1408,11 @@ def reset_timing(packed, mask, calls=20):
     """env_reset_kernel in autoreset mode on ``packed`` (the battery's
     post-step rows, ``mask`` its done envs) and in fresh mode over every
     env at 8192 and at 131072 (the K2 call's default reset), each held
-    against its plain version; card times behind a sleep, the plain
-    versions' and the calls' (``autoreset``, ``reset``) by CUDA events."""
-    out = {}
+    against its plain version bit for bit (``max_abs_err``: the largest
+    difference of a row entry over the cases); card times behind a sleep,
+    the plain versions' and the calls' (``autoreset``, ``reset``) by CUDA
+    events."""
+    out, err = {}, 0
     n = mask.shape[0]
     cases = {"autoreset": (packed, mask, None, n)}
     for m in (n, RESET_ENVS):
@@ -1429,6 +1425,7 @@ def reset_timing(packed, mask, calls=20):
         rows = {k: v.clone() for k, v in p.items()}
         FP.env_reset_fused(rows, msk, keys, device=DEV)
         want = FP.env_reset_rows_reference(p, msk, keys)
+        err = max(err, *(int((rows[k].long() - want[k].long()).abs().max()) for k in rows))
         assert all(torch.equal(rows[k], want[k]) for k in rows), f"env_reset {what}"
         masked = int(msk.sum())
         k_ms, k_all = card_ms_behind_sleep(lambda: FP.env_reset_fused(rows, msk, keys, device=DEV),
@@ -1441,6 +1438,7 @@ def reset_timing(packed, mask, calls=20):
     keys = cases[f"fresh {RESET_ENVS}"][2]
     out[f"fresh {RESET_ENVS}"]["call_ms"] = cuda_ms(lambda: FE.reset(keys), calls=5)[0]
     out["shape"] = FP.env_reset_kernel_shape()
+    out["max_abs_err"] = float(err)
     return out
 
 
@@ -1463,75 +1461,27 @@ def class_splits(name, packed, actions):
             for i, c in enumerate(BAT.BRANCH_CLASSES[:-1]) if bool((cls == i).any())}
 
 
-def step_class_table(batches, forms=None, calls=20):
-    """Each fed-step batch's branch classes and, for each launch form of
-    env_step_kernel (default: every one of FP.ENV_STEP_FORMS), its card time
-    a launch in us behind a sleep; every form is first held against the
-    plain no-reset step bit for bit."""
+def step_class_table(batches, calls=20):
+    """Each fed-step batch's branch classes and env_step_kernel's card time
+    a launch in us behind a sleep, the kernel first held against the plain
+    no-reset step bit for bit."""
     table = {}
     for what, (p, a) in batches.items():
         want = FP.env_step_rows_reference(p, a)
-        row = {"classes": BAT.class_histogram(p, a)}
-        for form in forms or FP.ENV_STEP_FORMS:
-            def fn():
-                return FP.env_step_fused(p, a, device=DEV, form=form)
-            got = fn()
-            assert all(torch.equal(got[0][k], want[0][k]) for k in p), (what, form)
-            assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]), (what, form)
-            row[form] = card_ms_behind_sleep(fn, calls)[0] * 1e3
-        table[what] = row
+
+        def fn():
+            return FP.env_step_fused(p, a, device=DEV)
+        got = fn()
+        assert all(torch.equal(got[0][k], want[0][k]) for k in p), what
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]), what
+        table[what] = {"classes": BAT.class_histogram(p, a),
+                       "us": card_ms_behind_sleep(fn, calls)[0] * 1e3}
     return table
 
 
-SM_HZ = 1.98e9      # the H100 SXM's boost clock, to read a trace's cycles as us
-
-
-def step_trace(packed, actions, form):
-    """env_step_kernel's clock trace of one launch (after a warm-up) in a
-    launch form: per branch class, its envs' step cycles (median, largest);
-    the block spans (entry to the last store; median, largest) and the
-    latest step start; for a form of 32-env blocks without regrouping, the
-    five slowest warps' steps and the classes each holds."""
-    n = actions.shape[0]
-    trace = torch.zeros(n, 3, dtype=torch.int64, device=DEV)
-    FP.env_step_fused(packed, actions, device=DEV, form=form)
-    FP.env_step_fused(packed, actions, device=DEV, form=form, trace=trace)
-    torch.cuda.synchronize()
-    cls, tr = BAT.branch_classes(packed, actions).cpu(), trace.cpu()
-    start, step, span = tr[:, 0], tr[:, 1], tr[:, 2]
-    out = {"form": form, "by_class": {}, "span_median": int(span.median()),
-           "span_max": int(span.max()), "start_max": int(start.max())}
-    for i, c in enumerate(BAT.BRANCH_CLASSES):
-        m = cls == i
-        if bool(m.any()):
-            out["by_class"][c] = {"envs": int(m.sum()), "median": int(step[m].median()),
-                                  "max": int(step[m].max())}
-    block, regroup, classed, _ = FP.ENV_STEP_FORMS[form]
-    if block == 32 and not regroup and not classed:
-        w = n // 32
-        warp = step[:w * 32].view(w, 32).max(1).values
-        out["slowest_warps"] = [
-            {"warp": int(k), "step": int(warp[k]), "classes": dict(zip(
-                *(x.tolist() for x in torch.unique(cls[k * 32:(k + 1) * 32], return_counts=True))))}
-            for k in warp.topk(5).indices]
-        for sw in out["slowest_warps"]:
-            sw["classes"] = {BAT.BRANCH_CLASSES[c]: v for c, v in sw["classes"].items()}
-    return out
-
-
-def trace_text(t):
-    us = 1e6 / SM_HZ
-    return (f"{t['form']}: steps by class (cycles: median, largest) "
-            + ", ".join(f"{c} x{v['envs']} {v['median']}, {v['max']}" for c, v in t["by_class"].items())
-            + f"; block span median {t['span_median']} ({t['span_median'] * us:.1f} us at "
-            f"{SM_HZ:.3g} Hz), largest {t['span_max']} ({t['span_max'] * us:.1f} us); latest step "
-            f"start {t['start_max']}"
-            + (f"; slowest warps {t['slowest_warps']}" if "slowest_warps" in t else ""))
-
-
 def class_table_text(table):
-    return "; ".join(f"{what} {row['classes']}: " + ", ".join(
-        f"{k} {v:.1f} us" for k, v in row.items() if k != "classes") for what, row in table.items())
+    return "; ".join(f"{what} {row['classes']}: {row['us']:.1f} us"
+                     for what, row in table.items())
 
 
 ENGINE_WRAPPERS = {"env_step": FP.env_step_fused, "env_reset": FP.env_reset_fused,
@@ -1606,10 +1556,7 @@ def phase_generic_train(smi):
     top = sorted(((sum(ds), len(ds), nm) for nm, ds in by_name.items()), reverse=True)[:8]
     env_us = [d for nm, ds in by_name.items() if "env_step_kernel" in nm for d in ds]
     rate = cfg.n_envs * T / (upd_ms / 1e3)
-    classes = step_class_table(mix)
-    classes.update(step_class_table(class_splits("generic mix", *mix["generic mix"]),
-                                    ("parent", FP.ENV_STEP_FORM)))
-    traces = [step_trace(*mix["generic mix"], form) for form in ("parent", FP.ENV_STEP_FORM)]
+    classes = step_class_table({**mix, **class_splits("generic mix", *mix["generic mix"])})
     log("19 generic PPO", f"ok: make_ppo(full_env_hooks(), fast_decay, fused_rollout=False) "
         f"{cfg.n_envs}x{T}, ActorCritic(256, 256), {GENERIC_UPDATES} updates, launches="
         f"{launches} (env_step {T} an update, K3b 2 a step and 2 for the last value); every "
@@ -1624,14 +1571,14 @@ def phase_generic_train(smi):
                 f"launch x{len(env_us)}; top kernels {[(nm[:48], c, round(ms, 3)) for ms, c, nm in top]}"
                 f" (launches, ms)")
         + f"; metrics by update {[{k: round(v, 5) for k, v in m.items()} for m in hist]}; "
-        f"env_step_kernel on the first update's step {T // 2}: {class_table_text(classes)}; "
-        f"its clock trace there: {'; '.join(map(trace_text, traces))} [{smi}]")
+        f"env_step_kernel on the first update's step {T // 2}: {class_table_text(classes)} "
+        f"[{smi}]")
     return ts, {"config": GENERIC, "updates": GENERIC_UPDATES, "launches_main_path": launches,
                 "update_ms": upd_ms, "update_ms_samples": times, "host_update_ms": host,
                 "env_steps_per_s": rate, "stages_ms": mid, "card_ms_per_update": card_ms,
                 "card_idle_share": idle, "card_idle_share_profiled": idle_prof,
                 "env_step_in_update_us": statistics.median(env_us) * 1e3 if env_us else None,
-                "generic_mix": classes, "generic_mix_traces": traces,
+                "generic_mix": classes,
                 "top_kernels": [{"name": nm, "launches": c, "ms": ms} for ms, c, nm in top],
                 "metrics_by_update": hist, "gpu": smi}
 
@@ -2195,8 +2142,7 @@ def main():
         "plain_ms": es["plain_ms"], "call_ms": es["call_ms"],
         "step_autoreset_call_ms": es["step_autoreset_call_ms"],
         "k3a_same_inputs_ms": es["k3a_same_inputs_ms"], "shape": es["shape"],
-        "form": es["form"], "forms": FP.ENV_STEP_FORMS, "form_shapes": es["form_shapes"],
-        "us_by_class_and_form": es["classes"], "us_on_generic_mix": generic["generic_mix"],
+        "us_by_class": es["classes"], "us_on_generic_mix": generic["generic_mix"],
         "in_update_us": generic["env_step_in_update_us"],
         "ptxas": es["ptxas"], **es["launch_shape"]})
     rs = es["reset"]
@@ -2210,7 +2156,8 @@ def main():
         "imitation_launches": imitation["bc"]["launches_main_path"]["env_reset"],
         "a2c_launches": learners["a2c"]["launches_main_path"]["env_reset"],
         "dqn_launches": learners["dqn"]["launches_main_path"]["env_reset"],
-        "max_abs_err": 0.0, "ms": rs["autoreset"]["ms"], "ms_from": "events behind a sleep",
+        "max_abs_err": es["reset_max_abs_err"], "ms": rs["autoreset"]["ms"],
+        "ms_from": "events behind a sleep",
         "plain_ms": rs["autoreset"]["plain_ms"], "call_ms": rs["autoreset"]["call_ms"],
         "shape": [STEP_ENVS], "masked": rs["autoreset"]["masked"],
         "modes": {what: {k: v for k, v in r.items() if k != "work"}

@@ -1,16 +1,14 @@
 """The engine's step and reset kernels (csrc/fused_policy_rollout.cu's
-``env_step_kernel`` with its class pass, and ``env_reset_kernel``),
-compiled as host C++, against their plain versions, on the CPU.
+``env_step_kernel`` and ``env_reset_kernel``), compiled as host C++,
+against their plain versions, on the CPU.
 
 The build is tests/test_torch_full_kernel_host.py's shim and launch file:
 the CUDA qualifiers become plain C++, and a kernel whose threads share
 shared memory runs block by block, each phase (the code between two
 ``__syncthreads``, or a warp's step between two ``__syncwarp``) for every
 thread of the block before the next, over shared memory and locals filled
-with a junk pattern. The step runs in every launch form of
-``ENV_STEP_FORMS`` (envs a block, a block's envs stepped in warps of one
-branch group, the class pass first, the shop generation joined after the
-step's branches), at env counts that leave partial blocks.
+with a junk pattern. Env counts leave partial blocks of both kernels (64
+envs a step block, 32 a reset block).
 
 Tolerance: none, but a reward's ``log`` term (plays past ante 3) within
 1e-4, where the host's math library and torch's may differ in the last bit.
@@ -29,7 +27,9 @@ from balatro_gym_tpu_torch.ops import kernel_rng as KR
 from tests.test_torch_full_kernel_host import CSRC, POLICY_LAUNCH, _compile
 
 SIZES = (1, 31, 33, 257)
-MASKS = ("all", "none", "alternating")
+STEP_SIZES = SIZES + (63, 64, 65, 128, 129)
+RESET_SIZES = SIZES + (32, 64, 65)
+MASKS = ("all", "none", "alternating", "sparse")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -44,33 +44,22 @@ def one_torch_thread():
 @pytest.fixture(scope="module")
 def host(tmp_path_factory):
     so = _compile(tmp_path_factory, POLICY_LAUNCH)
-    so.host_env_step.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-    so.host_class_order.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
+    so.host_env_step.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int]
     so.host_env_reset.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int]
     so.host_sort64.argtypes = [ctypes.c_void_p]
     so.host_places.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     return so
 
 
-def env_step(so, packed, actions, form):
+def env_step(so, packed, actions):
     n = packed["ints"].shape[1]
     out = {k: torch.empty_like(v) for k, v in packed.items()}
     reward, done = torch.empty(n), torch.empty(n, dtype=torch.bool)
-    block, regroup, classed, join = FP.ENV_STEP_FORMS[form]
     so.host_env_step(*(packed[k].data_ptr() for k in ("cards", "ints", "rng")),
                      actions.data_ptr(), F.float_tables("cpu").data_ptr(),
                      *(out[k].data_ptr() for k in ("cards", "ints", "rng")),
-                     reward.data_ptr(), done.data_ptr(), block, int(regroup), int(classed),
-                     int(join), n)
+                     reward.data_ptr(), done.data_ptr(), n)
     return out, reward, done
-
-
-def class_order(so, packed, actions):
-    n = actions.shape[0]
-    cls, order = torch.empty(n, dtype=torch.uint8), torch.empty(n, dtype=torch.int32)
-    so.host_class_order(packed["ints"].data_ptr(), actions.data_ptr(), cls.data_ptr(),
-                        order.data_ptr(), n)
-    return cls, order
 
 
 def env_reset(so, packed, mask, keys=None):
@@ -121,32 +110,12 @@ def battery(n, seed):
 
 def test_kernel_branch_classes_are_the_battery_s():
     """csrc/full_step.cuh's branch-class enum is BAT.BRANCH_CLASSES, in
-    order, and the wrapper's count of them is its length."""
+    order."""
     src = (CSRC / "full_step.cuh").read_text()
     body = re.search(r"enum\s*\{([^}]*BC_PLAY[^}]*)\};", src).group(1)
     names = [x.strip() for x in body.split(",") if x.strip()]
     assert names[-1] == "kBranchClasses"
     assert [x.removeprefix("BC_").lower() for x in names[:-1]] == list(BAT.BRANCH_CLASSES)
-    assert FP._BRANCH_CLASSES == len(BAT.BRANCH_CLASSES)
-    assert re.search(r"kClassBlock = %d\b" % FP._CLASS_BLOCK,
-                     (CSRC / "fused_policy_rollout.cu").read_text())
-
-
-@pytest.mark.parametrize("n", SIZES + (600,))
-def test_host_class_pass_is_a_stable_class_order(host, n):
-    """The class pass's classes are ``BAT.branch_classes`` and its order a
-    permutation of the envs, by class and within a class by env, along 6
-    fed steps of the battery (600 envs: three class-pass blocks)."""
-    packed, actions, _ = battery(n, n)
-    for t in range(6):
-        a = actions(packed, t).to(torch.int32)
-        cls, order = class_order(host, packed, a)
-        want = BAT.branch_classes(packed, a)
-        assert torch.equal(cls.long(), want), t
-        assert torch.equal(order.sort().values, torch.arange(n, dtype=torch.int32)), t
-        key = want[order.long()] * n + order.long()
-        assert bool((key[1:] > key[:-1]).all()), t
-        packed = FP.step_rows_reference(packed, a)[0]
 
 
 def group_of(c):
@@ -192,17 +161,15 @@ def test_host_run_order_starts_each_group_on_a_warp(host, envs):
                 assert (b + gaps[g]) % 32 == 0, (trial, g)
 
 
-@pytest.mark.parametrize("form", list(FP.ENV_STEP_FORMS))
-@pytest.mark.parametrize("n", SIZES)
-def test_host_env_step_forms_on_the_battery(host, n, form):
-    """Every launch form of the engine's step along 8 fed steps of the
-    battery (illegal actions, ends, envs over) against the plain no-reset
-    step."""
+@pytest.mark.parametrize("n", STEP_SIZES)
+def test_host_env_step_on_the_battery(host, n):
+    """The engine's step along 8 fed steps of the battery (illegal actions,
+    ends, envs over) against the plain no-reset step."""
     packed, actions, _ = battery(n, n + 7)
     for t in range(8):
         a = actions(packed, t).to(torch.int32)
-        assert_step_equal(env_step(host, packed, a, form), FP.env_step_rows_reference(packed, a),
-                          f"n={n} {form} step {t}")
+        assert_step_equal(env_step(host, packed, a), FP.env_step_rows_reference(packed, a),
+                          f"n={n} step {t}")
         packed = FP.step_rows_reference(packed, a)[0]
 
 
@@ -215,31 +182,31 @@ def single_class_batches(n, seed):
     return BAT.class_batches(pool, n, rng)
 
 
-@pytest.mark.parametrize("n", (33, 257))
-def test_host_env_step_forms_on_single_class_batches(host, n):
-    """Every launch form on each batch whose envs all take one branch class
-    (the timing batches of chip_smoke.py's phase 18)."""
+@pytest.mark.parametrize("n", (33, 64, 257))
+def test_host_env_step_on_single_class_batches(host, n):
+    """The step on each batch whose envs all take one branch class (the
+    timing batches of chip_smoke.py's phase 18)."""
     batches = single_class_batches(n, n)
     assert set(batches) == {name for name, _, _ in BAT.ACTION_CLASSES}
     for name, (p, a) in batches.items():
         assert BAT.class_histogram(p, a) == {name: n}, name
-        want = FP.env_step_rows_reference(p, a)
-        for form in FP.ENV_STEP_FORMS:
-            assert_step_equal(env_step(host, p, a, form), want, f"{name} {form}")
+        assert_step_equal(env_step(host, p, a), FP.env_step_rows_reference(p, a), name)
 
 
 def reset_mask(kind, n):
     env = torch.arange(n)
-    return {"all": env >= 0, "none": env < 0, "alternating": env % 2 == 1}[kind]
+    return {"all": env >= 0, "none": env < 0, "alternating": env % 2 == 1,
+            "sparse": env % 37 == 5}[kind]
 
 
 @pytest.mark.parametrize("kind", MASKS)
-@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("n", RESET_SIZES)
 def test_host_env_reset_equals_plain(host, n, kind):
     """The reset kernel in both modes (each env's own fold_in(key, step
     count), and given keys) against ``env_reset_rows_reference``, on a
     mid-game state whose envs have stepped different counts; unmasked envs'
-    rows untouched."""
+    rows untouched. Masks: every env, none, every other, and one env in 37
+    (blocks with one masked env, or none)."""
     packed, actions, _ = battery(n, n + 3)
     for t in range(n % 5 + 2):
         packed = FP.step_rows_reference(packed, actions(packed, t).to(torch.int32))[0]

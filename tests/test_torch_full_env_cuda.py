@@ -1,5 +1,5 @@
-"""The flagship engine's step and reset kernels (``env_step_kernel`` in
-each launch form, ``env_reset_kernel``) and the paths on them
+"""The flagship engine's step and reset kernels (``env_step_kernel``,
+``env_reset_kernel``) and the paths on them
 (``full_env.step``, ``step_autoreset``, ``autoreset``, ``reset``, the policy
 inputs, the generic PPO rollout, evaluation, the Gym shell) against their
 plain versions and their CPU forms, on the card.
@@ -29,7 +29,7 @@ from balatro_gym_tpu_torch.train.networks import ActorCritic
 
 pytestmark = pytest.mark.cuda
 
-SIZES = (1, 31, 33, 257, 8192, 8193)      # partial blocks of 32-256 envs
+SIZES = (1, 31, 33, 257, 8192, 8193)      # partial blocks of 32 and 64 envs
 LOG1P_ROW = FP.OBS_DIM - 6
 
 
@@ -73,19 +73,17 @@ def test_env_step_kernel_equals_plain(dev, n):
 
 
 def test_env_step_kernel_shape(dev):
-    """Each launch form's block and shared memory (888 B a State slot, a
-    class byte and two 2-byte places a block env); the form the port
-    launches at most 72 registers and 160 B of stack, the parent shape's;
-    K3a's shape as before."""
-    for form, (block, _, _, _) in FP.ENV_STEP_FORMS.items():
-        shape = FP.env_step_kernel_shape(form)
-        assert shape["block"] == block and shape["shared_bytes"] == block * (888 + 5), shape
+    """The step's 64-env blocks and their shared memory (888 B a State
+    slot, a class byte and two 2-byte places an env), at most 72 registers
+    and 160 B of stack, K3a's shape's; K3a's shape as before; the reset's
+    32 warps a block, a State slot and 64 sort keys each."""
     shape = FP.env_step_kernel_shape()
+    assert shape["block"] == 64 and shape["shared_bytes"] == 64 * (888 + 5), shape
     assert shape["registers"] <= 72 and shape["stack_bytes"] <= 160, shape
     k3a = FP.step_kernel_shape()
     assert k3a["block"] == 32 and k3a["shared_bytes"] == 32 * 888, k3a
     reset = FP.env_reset_kernel_shape()
-    assert reset["block"] == 256 and reset["shared_bytes"] == 8 * (888 + 64 * 8), reset
+    assert reset["block"] == 1024 and reset["shared_bytes"] == 32 * (888 + 64 * 8), reset
 
 
 def single_class_batches(n, dev, seed):
@@ -99,24 +97,23 @@ def single_class_batches(n, dev, seed):
 
 
 @pytest.mark.parametrize("n", (257, 8192))
-def test_env_step_forms_on_single_class_batches(dev, n):
-    """Every launch form of the kernel on each batch whose envs all take
-    one branch class, against the plain no-reset step."""
+def test_env_step_on_single_class_batches(dev, n):
+    """The kernel on each batch whose envs all take one branch class,
+    against the plain no-reset step."""
     batches = single_class_batches(n, dev, n)
     assert set(batches) == {name for name, _, _ in BAT.ACTION_CLASSES}
     for name, (p, a) in batches.items():
-        want = FP.env_step_rows_reference(p, a)
-        for form in FP.ENV_STEP_FORMS:
-            assert_packed_step(FP.env_step_fused(p, a, device=dev, form=form), want,
-                               f"{name} {form}")
+        assert_packed_step(FP.env_step_fused(p, a, device=dev), FP.env_step_rows_reference(p, a),
+                           name)
 
 
 def reset_mask(kind, n, dev):
     env = torch.arange(n, device=dev)
-    return {"all": env >= 0, "none": env < 0, "alternating": env % 2 == 1}[kind]
+    return {"all": env >= 0, "none": env < 0, "alternating": env % 2 == 1,
+            "sparse": env % 37 == 5}[kind]
 
 
-@pytest.mark.parametrize("kind", ("all", "none", "alternating"))
+@pytest.mark.parametrize("kind", ("all", "none", "alternating", "sparse"))
 @pytest.mark.parametrize("n", (1, 31, 33, 257, 8193))
 def test_env_reset_kernel_equals_plain(dev, n, kind):
     """``env_reset_fused`` in both modes (each env's fold_in(key, step

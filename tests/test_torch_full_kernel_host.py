@@ -83,7 +83,7 @@ SHIM = r"""
 using std::max;
 using std::min;
 struct Dim3 { int x; };
-static Dim3 blockIdx, threadIdx, blockDim, gridDim;
+static Dim3 blockIdx, threadIdx;
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
@@ -106,10 +106,12 @@ inline int __popcll(uint64_t x) { return __builtin_popcountll(x); }
 inline int __ffs(uint32_t x) { return __builtin_ffs((int)x); }
 inline int __ffsll(uint64_t x) { return __builtin_ffsll((long long)x); }
 // A block's threads run phase by phase (see POLICY_LAUNCH), so a barrier is
-// nothing, and an asynchronous copy into shared memory is a plain one.
+// nothing, and an asynchronous copy into shared memory is a plain one. The
+// launch file runs the phases of a kernel that votes over its block
+// (__syncthreads_or) itself and never calls the kernel.
 inline void __syncthreads() {}
+inline int __syncthreads_or(int p) { return p; }
 inline void __syncwarp() {}
-inline long long clock64() { return 0; }
 inline void copy_async4(void* dst, const void* src) { memcpy(dst, src, 4); }
 inline void copy_async_wait() {}
 """
@@ -323,8 +325,7 @@ POLICY_LAUNCH = r"""
 #include "shim.h"
 #include "fused_policy_rollout.cu"
 namespace {
-__attribute__((aligned(16))) unsigned char k3a_slots[std::max(kStepSmem,
-                                                              env_step_smem(kEnvStepMax))];
+__attribute__((aligned(16))) unsigned char k3a_slots[std::max(kStepSmem, kEnvStepSmem)];
 State observe_slots[kObserveEnvs];
 SampleSmem sample_smem;
 }
@@ -339,58 +340,23 @@ extern "C" void host_step(const int* c, const int* i, const uint32_t* r, const i
     policy_step_kernel(c, i, r, act, ft, co, io, ro, rw, done, obs, mask, n);
   }
 }
-// The class pass (env_class_kernel, env_order_kernel), block by block, each
-// phase for every thread of the block before the next, over shared memory
-// filled with junk; cls [n] and order [n] out.
-extern "C" void host_class_order(const int* ints, const int* act, uint8_t* cls, int* order,
-                                 int n) {
-  const int blocks = (n + kClassBlock - 1) / kClassBlock;
-  int* counts = new int[blocks * kBranchClasses];
-  uint8_t block_cls[kClassBlock];
-  int start[kBranchClasses];
-  for (int b = 0; b < blocks; ++b) {
-    memset(block_cls, 0xA5, sizeof block_cls);
-    for (int t = 0; t < kClassBlock; ++t) class_of_env(block_cls, ints, act, cls, t, b * kClassBlock, n);
-    for (int t = 0; t < kClassBlock; ++t) class_count(block_cls, counts, t, b);
-  }
-  for (int b = 0; b < blocks; ++b) {
-    memset(block_cls, 0xA5, sizeof block_cls);
-    memset(start, 0xA5, sizeof start);
-    for (int t = 0; t < kClassBlock; ++t) order_starts(start, block_cls, cls, counts, t, b, blocks, n);
-    for (int t = 0; t < kClassBlock; ++t) order_write(start, block_cls, order, t, b, n);
-  }
-  delete[] counts;
-}
-// The engine's step (env_step_kernel) in a launch form: envs a block, a
-// block's envs stepped in warps of one branch group, with the class pass
-// first, and with the shop generation joined (step's kJoinShop). Block
-// by block, each phase for every thread of the block before the next, over
-// shared memory filled with junk.
+// The engine's step (env_step_kernel), block by block, each phase for
+// every thread of the block before the next, over shared memory filled
+// with junk.
 extern "C" void host_env_step(const int* c, const int* i, const uint32_t* r, const int* act,
                               const float* ft, int* co, int* io, uint32_t* ro, float* rw,
-                              uint8_t* done, int envs, int regroup, int classed, int join,
-                              int n) {
-  int* order = nullptr;
-  if (classed) {
-    order = new int[n];
-    uint8_t* cls = new uint8_t[n];
-    host_class_order(i, act, cls, order, n);
-    delete[] cls;
+                              uint8_t* done, int n) {
+  const EnvStepSmem sm = env_step_smem_of(k3a_slots);
+  for (int base = 0; base < n; base += kEnvStepBlock) {
+    memset(k3a_slots, 0xA5, kEnvStepSmem);
+    for (int t = 0; t < kEnvStepBlock; ++t) env_step_classify(sm, i, act, t, base, n);
+    for (int t = 0; t < kEnvStepBlock; ++t) env_step_place(sm, c, i, r, t, base, n);
+    for (int t = 0; t < kEnvStepBlock; ++t) env_step_run(sm, act, ft, rw, done, t, base, n);
+    for (int t = 0; t < kEnvStepBlock; ++t) env_step_store(sm, co, io, ro, t, base, n);
   }
-  const EnvStepSmem sm = env_step_smem_of(k3a_slots, envs);
-  for (int base = 0; base < n; base += envs) {
-    memset(k3a_slots, 0xA5, env_step_smem(envs));
-    for (int t = 0; t < envs; ++t) env_step_classify(sm, i, act, order, regroup, t, base, n);
-    for (int t = 0; t < envs; ++t) env_step_place(sm, c, i, r, order, t, base, envs, n);
-    for (int t = 0; t < envs; ++t)
-      (join ? env_step_run<true> : env_step_run<false>)(sm, act, ft, order, rw, done, nullptr, t,
-                                                        base, n);
-    for (int t = 0; t < envs; ++t) env_step_store(sm, co, io, ro, order, t, base, n);
-  }
-  delete[] order;
 }
-// env_step_kernel's run order of a block: each env's place from the
-// block's classes.
+// env_step_kernel's run order of a block of `envs` envs: each env's place
+// from the block's classes.
 extern "C" void host_places(const uint8_t* cls, int envs, int16_t* out) {
   for (int t = 0; t < envs; ++t) out[t] = (int16_t)env_step_place_of(cls, t, envs);
 }
@@ -398,18 +364,23 @@ extern "C" void host_places(const uint8_t* cls, int envs, int16_t* out) {
 const auto host_lanes = [](auto f) {
   for (int l = 0; l < 32; ++l) f(l);
 };
-// The engine's reset (env_reset_kernel): each masked env's warp, its State
-// slot and sort keys filled with junk first.
+// The engine's reset (env_reset_kernel), block by block over shared memory
+// filled with junk: a block with no masked env skipped, then the shuffle
+// phase of each masked env's warp, then the store phase of every thread.
+ResetSmem reset_smem;
 extern "C" void host_env_reset(int* c, int* i, uint32_t* r, const uint8_t* mask,
                                const uint32_t* keys, int n) {
-  State slot;
-  uint64_t v[kDeck];
-  for (int e = 0; e < n; ++e) {
-    if (!mask[e]) continue;
-    memset(&slot, 0xA5, sizeof slot);
-    memset(v, 0xA5, sizeof v);
-    const TfKey key = reset_key(i, r, keys, e, (size_t)n);
-    reset_env(slot, v, key, c, i, r, e, (size_t)n, host_lanes);
+  for (int base = 0; base < n; base += kResetEnvs) {
+    bool any = false;
+    for (int w = 0; w < kResetEnvs; ++w) any = any || reset_masked(mask, base + w, n);
+    if (!any) continue;
+    memset(&reset_smem, 0xA5, sizeof reset_smem);
+    for (int w = 0; w < kResetEnvs; ++w)
+      if (reset_masked(mask, base + w, n))
+        reset_slot(reset_smem.slots[w], reset_smem.keys[w],
+                   reset_key(i, r, keys, base + w, (size_t)n), host_lanes);
+    for (int w = 0; w < kResetEnvs; ++w)
+      for (int l = 0; l < 32; ++l) reset_store(reset_smem, w, l, mask, c, i, r, base, n);
   }
 }
 // The warp's sort of 64 keys.
@@ -468,7 +439,7 @@ def host_policy(tmp_path_factory):
     so = _compile(tmp_path_factory, POLICY_LAUNCH)
     so.host_observe.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
     so.host_step.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int]
-    so.host_env_step.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+    so.host_env_step.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int]
     so.host_sample.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                                ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
                                ctypes.c_void_p]
@@ -494,16 +465,14 @@ def host_policy(tmp_path_factory):
                      reward.data_ptr(), done.data_ptr(), obs.data_ptr(), mask.data_ptr(), n)
         return out, reward, done, obs.T, mask.T
 
-    def env_step(packed, actions, form=None):
+    def env_step(packed, actions):
         n = packed["ints"].shape[1]
         out = {k: torch.empty_like(v) for k, v in packed.items()}
         reward, done = torch.empty(n), torch.empty(n, dtype=torch.bool)
-        block, regroup, classed, join = FP.ENV_STEP_FORMS[form or FP.ENV_STEP_FORM]
         so.host_env_step(*(packed[k].data_ptr() for k in ("cards", "ints", "rng")),
                          actions.data_ptr(), F.float_tables("cpu").data_ptr(),
                          *(out[k].data_ptr() for k in ("cards", "ints", "rng")),
-                         reward.data_ptr(), done.data_ptr(), block, int(regroup),
-                         int(classed), int(join), n)
+                         reward.data_ptr(), done.data_ptr(), n)
         return out, reward, done
 
     step.env_step = env_step

@@ -2,7 +2,8 @@
 builds of the policy-collection kernels, on the CPU: its inputs, and the
 contract by which it holds each build's outputs against the plain versions
 (K3b bit for bit but the log1p row within 1 ulp, the sampler's actions bit
-for bit and log-probs within 1e-6, K3a bit for bit but that row)."""
+for bit and log-probs within 1e-6, K3a bit for bit but that row, the
+engine's reset bit for bit)."""
 import pytest
 import torch
 
@@ -25,6 +26,8 @@ def plain():
         out["sample", name] = FP.sample(inp["key"], logits)
     for name, (p, a) in inp["step"].items():
         out["step", name] = FP.step_rows_reference(p, a)
+    for name, (p, m, keys) in inp["reset"].items():
+        out["reset", name] = FP.env_reset_rows_reference(p, m, keys)
     torch.set_num_threads(threads)
     return inp, out
 
@@ -39,10 +42,17 @@ def test_inputs(plain):
     assert logits["trainer"].shape == (N, 60) and logits["trainer"].dtype == torch.float32
     assert bool((FF._load(inp["packed"])["phase"] == 0).any())             # some envs in play
     assert not bool(out["step", "no_reset"][2].any()) and bool(out["step", "all_reset"][2].all())
+    (p, sparse, none), (zeros, every, keys) = inp["reset"]["autoreset"], inp["reset"]["fresh"]
+    assert p is inp["packed"] and none is None and sparse.tolist() == [i % 63 == 5 for i in range(N)]
+    assert bool(every.all()) and keys.shape == (N, 2) and not any(bool(v.any()) for v in zeros.values())
+    fresh = out["reset", "fresh"]
+    assert bool((fresh["ints"][FF.S_STEPC] == 0).all()) and not torch.equal(fresh["cards"],
+                                                                          zeros["cards"])
 
 
 @pytest.mark.parametrize("kernel,name", [("observe", "mid"), ("sample", "policy"),
-                                         ("step", "mid")])
+                                         ("step", "mid"), ("reset", "autoreset"),
+                                         ("reset", "fresh")])
 def test_agrees_holds_the_contract(plain, kernel, name):
     """The plain outputs agree with themselves; one entry off (a log-prob by
     2e-6, any other entry by one) does not, but the log1p row by 1 ulp."""
@@ -51,6 +61,12 @@ def test_agrees_holds_the_contract(plain, kernel, name):
     if kernel == "sample":
         assert AB.agrees(kernel, want, (want[0], want[1] + 5e-7))
         bad = [(want[0] + 1, want[1]), (want[0], want[1] + 2e-6)]
+    elif kernel == "reset":
+        bad = []
+        for k in want:
+            off = {j: v.clone() for j, v in want.items()}
+            off[k].view(-1)[-1] += 1
+            bad.append(off)
     else:
         obs = 0 if kernel == "observe" else 3
         ulp = [w.clone() if torch.is_tensor(w) else w for w in want]
