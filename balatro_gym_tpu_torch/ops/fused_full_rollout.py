@@ -1279,12 +1279,13 @@ def _reference_packed(packed, actions, seed, n_steps):
     return _store(s), tot, epi
 
 
-def sample_keys(seed, n_envs, device=None):
-    """Sampled mode's per-env keys: ``split_child(seed_key(seed), e)``, on
-    ``device`` (default: the card)."""
+def sample_keys(seed, n_envs, device=None, first: int = 0):
+    """Sampled mode's per-env keys: ``split_child(seed_key(seed), e)`` for
+    ``e`` in ``first .. first + n_envs - 1``, on ``device`` (default: the
+    card)."""
     device = run_device((), device)
     k1, k2 = KR.seed_key(seed, device=device)
-    return KR.split_child(k1, k2, torch.arange(n_envs, device=device))
+    return KR.split_child(k1, k2, torch.arange(first, first + n_envs, device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -1352,10 +1353,12 @@ def _kernel_packed(packed, actions, seed, n_steps):
 # ---------------------------------------------------------------------------
 
 
-def default_reset(seed, n_envs: int, device=None) -> FE.FullEnvState:
-    """``reset`` over ``split(key(seed), n_envs)``: the rollout's default
-    start, on ``device`` (default: the card)."""
-    return FE.reset(torch.stack(sample_keys(seed, n_envs, device), -1))
+def default_reset(seed, n_envs: int, device=None, first: int = 0) -> FE.FullEnvState:
+    """``reset`` over ``split(key(seed), N)``: the rollout's default start,
+    on ``device`` (default: the card). With ``first`` it is envs ``first ..
+    first + n_envs - 1`` of that start for any ``N`` past them (a
+    data-parallel rank's slice, built from its own keys)."""
+    return FE.reset(torch.stack(sample_keys(seed, n_envs, device, first), -1))
 
 
 def _prepare(seed, n_envs, n_steps, actions, init_state, device):

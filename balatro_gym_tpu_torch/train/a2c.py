@@ -15,8 +15,11 @@ Keys are split as the reference splits them: ``init_fn`` splits its key 3
 ways (net, envs, run), an update ``split(key)`` into the next key and the
 rollout's, and the rollout's into one key a step. As in the port's PPO,
 ``update_stats`` is fed the normalised observations (the reference's
-quirk). The reference's ``axis_name`` (data-parallel updates) belongs with
-the mesh and is not here.
+quirk). Given a data-parallel ``mesh`` (``parallel/mesh.py``), an update is
+the reference's ``axis_name`` path: the rank folded into the rollout key,
+the gradients averaged over the ranks in one all-reduce and the observation
+statistics merged across them; the metrics stay the rank's own, as in the
+reference.
 
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``.
@@ -35,7 +38,7 @@ from balatro_gym_tpu_torch.train.networks import ActorCritic, load_flax_params
 from balatro_gym_tpu_torch.train.normalize import (
     RunningStats, init_stats, normalize, update_stats)
 from balatro_gym_tpu_torch.train.ppo import (
-    EnvHooks, RMSPropState, _flax_leaves, _keys, categorical, param_list,
+    EnvHooks, RMSPropState, _flax_leaves, _keys, categorical, mean_grads, param_list,
     reference_env_states, reference_key, reference_stats, rmsprop_init, rmsprop_update,
     sim_env_hooks)
 
@@ -72,9 +75,13 @@ class A2CState:
     update_idx: int
 
 
-def make_a2c(hooks: EnvHooks, cfg: A2CConfig, *, device=None):
+def make_a2c(hooks: EnvHooks, cfg: A2CConfig, *, device=None, mesh=None):
     """(init_fn, update_fn) of one A2C run on one device (default: the
-    card; ``device="cpu"`` runs the kernels' plain versions).
+    card; ``device="cpu"`` runs the kernels' plain versions), or of one rank
+    of a data-parallel run over ``mesh`` (a ``parallel.mesh.Mesh``: then
+    ``cfg.n_envs`` is the global count and this rank holds its
+    ``n_envs // size`` envs, children ``rank * n_local ..`` of
+    ``split(k_env, n_envs)``).
 
     init_fn(key) -> A2CState, ``key`` the two words of a Threefry key: the
     envs reset from ``split(k_env, n_envs)``; the weights are drawn
@@ -85,6 +92,10 @@ def make_a2c(hooks: EnvHooks, cfg: A2CConfig, *, device=None):
     given as ``record`` is filled with the rollout's ``obs``, ``mask``,
     ``action``, ``value``, ``reward``, ``done`` (``[T, E, ...]``) and the
     discounted ``returns``."""
+    if mesh is not None and cfg.n_envs % mesh.size:
+        raise ValueError(f"n_envs={cfg.n_envs} not divisible by mesh size {mesh.size}")
+    n_local = cfg.n_envs if mesh is None else cfg.n_envs // mesh.size
+    first = 0 if mesh is None else mesh.rank * n_local
     dev = run_device((), device)
 
     def init_fn(key) -> A2CState:
@@ -93,7 +104,7 @@ def make_a2c(hooks: EnvHooks, cfg: A2CConfig, *, device=None):
                           generator=torch.Generator().manual_seed((k_net[0] << 32) | k_net[1]))
         net = net.to(dev)
         return A2CState(params=net, opt_state=rmsprop_init(param_list(net)),
-                        env_states=hooks.reset(_keys(k_env, cfg.n_envs, dev)), key=k_run,
+                        env_states=hooks.reset(_keys(k_env, n_local, dev, first)), key=k_run,
                         obs_stats=init_stats(hooks.obs_dim, dev), update_idx=0)
 
     def obs_mask(env_states, obs_stats):
@@ -104,8 +115,10 @@ def make_a2c(hooks: EnvHooks, cfg: A2CConfig, *, device=None):
 
     def update_fn(ts: A2CState, record: dict | None = None):
         key, k_roll = KR.split_keys(ts.key, 2)
+        if mesh is not None:
+            k_roll = KR.fold_in(*k_roll, mesh.rank)
         net, env_states = ts.params, ts.env_states
-        T, E = cfg.rollout_len, cfg.n_envs
+        T, E = cfg.rollout_len, n_local
         buf = {"obs": torch.empty(T, E, hooks.obs_dim, device=dev),
                "mask": torch.empty(T, E, hooks.n_actions, dtype=torch.bool, device=dev),
                "action": torch.empty(T, E, dtype=torch.int64, device=dev),
@@ -139,8 +152,10 @@ def make_a2c(hooks: EnvHooks, cfg: A2CConfig, *, device=None):
         loss = pg + cfg.vf_coef * vf - cfg.ent_coef * ent
         params = param_list(net)
         grads = torch.autograd.grad(loss, params)
+        if mesh is not None:
+            grads, = mean_grads(mesh, grads)
         opt = rmsprop_update(params, grads, ts.opt_state, cfg.lr, cfg.max_grad_norm)
-        obs_stats = (update_stats(ts.obs_stats, o) if cfg.normalize_obs else ts.obs_stats)
+        obs_stats = (update_stats(ts.obs_stats, o, mesh) if cfg.normalize_obs else ts.obs_stats)
         out = A2CState(params=net, opt_state=opt, env_states=env_states, key=key,
                        obs_stats=obs_stats, update_idx=ts.update_idx + 1)
         return out, {"loss": loss.detach(), "pg_loss": pg.detach(), "vf_loss": vf.detach(),

@@ -1,4 +1,5 @@
-"""Training command line of the port: PPO, A2C or DQN on one device.
+"""Training command line of the port: PPO, A2C or DQN on one device, and
+data-parallel PPO over ranks.
 
 Port of ``balatro_gym_tpu/train/cli.py``:
 
@@ -8,6 +9,7 @@ Port of ``balatro_gym_tpu/train/cli.py``:
     python -m balatro_gym_tpu_torch.train.cli --algorithm a2c --env full --n-envs 8192 --rollout 5
     python -m balatro_gym_tpu_torch.train.cli --algorithm dqn --env full --n-envs 8192 --rollout 4
     python -m balatro_gym_tpu_torch.train.cli --env sim --updates 2 --device cpu
+    torchrun --nproc-per-node 2 -m balatro_gym_tpu_torch.train.cli --distributed --env full
 
 It runs on the card unless given ``--device cpu`` (the kernels' plain
 versions then run on the CPU), prints one JSON line of metrics every
@@ -23,10 +25,20 @@ default; the rate is counted as ``n_envs * rollout`` env-steps an update.
 whole state (for DQN the replay buffer too) to ``D/step_<i>`` after every
 N-th update ``i`` of the run (``utils/checkpoint.py``), and ``--resume
 D/step_<i>`` restores one after ``init_fn`` and trains on from it;
-``--checkpoint-every`` alone saves nothing. ``--distributed``, which the
-port does not carry yet, exits non-zero and names the ROADMAP item that
-ports it. ``--wandb`` logs each metrics line to a W&B run where ``wandb``
-imports and starts, and trains without logging where it does not.
+``--checkpoint-every`` alone saves nothing. ``--wandb`` logs each metrics
+line to a W&B run where ``wandb`` imports and starts, and trains without
+logging where it does not.
+
+``--distributed`` trains PPO through ``parallel.mesh.make_distributed_ppo``:
+under a launcher (torchrun, ``python -m torch.distributed.run``) over its
+ranks, ``--n-envs`` the global count (nccl where each rank owns a card,
+gloo on the CPU or where ranks share a card), and alone as a mesh of one.
+Only rank 0 prints, writes the summary (``n_devices`` is the world size)
+and saves checkpoints; ``--resume`` over more than one rank exits non-zero
+(a checkpoint holds rank 0's envs only). As in the reference, ``--algorithm
+a2c|dqn`` trains alone; under a launcher of more than one rank, every run
+that is not ``--distributed`` PPO exits non-zero, so that the ranks never
+train separate learners in silence.
 """
 from __future__ import annotations
 
@@ -37,15 +49,8 @@ from pathlib import Path
 
 import torch
 
-# option -> (is it set?, the ROADMAP item that ports it)
-_NOT_PORTED = {
-    "--distributed": (lambda a: a.distributed,
-                      "data-parallel training is not ported (ROADMAP queue 1 item 10)"),
-}
-
-
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Balatro trainer (PyTorch, one device)")
+    p = argparse.ArgumentParser(description="Balatro trainer (PyTorch)")
     p.add_argument("--algorithm", choices=["ppo", "a2c", "dqn"], default="ppo")
     p.add_argument("--env", choices=["sim", "full"], default="sim")
     p.add_argument("--updates", type=int, default=50)
@@ -84,9 +89,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    for option, (is_set, why) in _NOT_PORTED.items():
-        if is_set(args):
-            raise SystemExit(f"{option}: {why}")
+    from balatro_gym_tpu_torch.parallel import mesh as PM
+
+    launched = PM.launcher_env()
+    if launched is not None and launched[0] > 1 and not (
+            args.distributed and args.algorithm == "ppo"):
+        raise SystemExit(f"{launched[0]} ranks were launched, but only --distributed PPO "
+                         "trains over ranks: each would train a learner of its own")
     if args.fused_rollout and args.env != "full":
         raise SystemExit("--fused-rollout requires --env full")
     if args.structured_net and args.env != "full":
@@ -99,6 +108,7 @@ def main(argv=None) -> dict:
     from balatro_gym_tpu_torch.utils.checkpoint import restore_train_state, save_train_state
 
     hooks = sim_env_hooks() if args.env == "sim" else full_env_hooks()
+    mesh = None
     cfg = PPOConfig(n_envs=args.n_envs, rollout_len=args.rollout, epochs=args.epochs,
                     minibatches=args.minibatches, lr=args.lr,
                     fused_rollout=args.fused_rollout, structured_net=args.structured_net,
@@ -118,10 +128,18 @@ def main(argv=None) -> dict:
         init_fn, update_fn = make_dqn(
             hooks, DQNConfig(n_envs=args.n_envs, lr=args.lr, steps_per_update=args.rollout),
             device=args.device)
+    elif args.distributed:
+        PM.init_distributed(device=args.device)
+        mesh = PM.make_mesh(device=args.device)
+        if args.resume and mesh.size > 1:
+            raise SystemExit("--resume over more than one rank: a checkpoint holds rank 0's "
+                             "envs only")
+        init_fn, update_fn, _ = PM.make_distributed_ppo(hooks, cfg, mesh)
     else:
         init_fn, update_fn, _ = make_ppo(hooks, cfg, device=args.device)
+    lead = mesh is None or mesh.rank == 0
     wandb_run = None
-    if args.wandb:
+    if args.wandb and lead:
         try:
             import wandb
 
@@ -132,13 +150,13 @@ def main(argv=None) -> dict:
     if args.resume:
         ts = restore_train_state(args.resume, ts)
         print(f"resumed from {args.resume} at update {ts.update_idx}", flush=True)
-    on_card = run_device((), args.device).type == "cuda"
+    on_card = (run_device((), args.device) if mesh is None else mesh.device).type == "cuda"
 
     t0 = time.perf_counter()
     metrics = {}
     for i in range(args.updates):
         ts, metrics = update_fn(ts)
-        if args.log_every and (i + 1) % args.log_every == 0:
+        if args.log_every and (i + 1) % args.log_every == 0 and lead:
             m = {k: float(v) for k, v in metrics.items()}
             m["update"] = i + 1
             m["env_steps_per_sec"] = (i + 1) * cfg.n_envs * cfg.rollout_len / (
@@ -146,7 +164,7 @@ def main(argv=None) -> dict:
             print(json.dumps(m), flush=True)
             if wandb_run:
                 wandb_run.log(m)
-        if args.checkpoint_every and args.checkpoint_dir and \
+        if args.checkpoint_every and args.checkpoint_dir and lead and \
                 (i + 1) % args.checkpoint_every == 0:
             save_train_state(Path(args.checkpoint_dir) / f"step_{i + 1}", ts)
     if on_card:
@@ -157,13 +175,15 @@ def main(argv=None) -> dict:
         "algorithm": args.algorithm, "env": args.env, "total_env_steps": total_steps,
         "wall_seconds": elapsed, "steps_per_second": total_steps / elapsed,
         "updates": args.updates, "final_metrics": {k: float(v) for k, v in metrics.items()},
-        "n_devices": 1,
+        "n_devices": 1 if mesh is None else mesh.size,
     }
-    if args.summary:
-        Path(args.summary).write_text(json.dumps(summary, indent=2))
-    print(json.dumps(summary))
+    if lead:
+        if args.summary:
+            Path(args.summary).write_text(json.dumps(summary, indent=2))
+        print(json.dumps(summary))
     if wandb_run:
         wandb_run.finish()
+    PM.destroy()
     return summary
 
 

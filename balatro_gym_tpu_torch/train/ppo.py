@@ -36,6 +36,14 @@ Neither rollout synchronises with the card inside its step loop: step keys
 are split on the host before it, and every per-step value stays on the
 device.
 
+Given a data-parallel ``mesh`` (``parallel/mesh.py``), an update is the
+reference's ``axis_name`` path: each rank steps its own shard of the envs
+with the same parameters, folds its rank into the rollout, shuffle and
+reset keys, merges the statistics across ranks, and takes each minibatch's
+step on the gradients averaged over the ranks in one all-reduce, which
+carries the minibatch's approx-KL too, so every rank takes the same KL
+decision and applies the same bits.
+
 Every entry point runs on the card unless the caller passes
 ``device="cpu"``, where the kernels' plain versions run; on a card the
 collection launches its kernels or raises.
@@ -239,6 +247,19 @@ def rmsprop_update(params, grads, st: RMSPropState, lr: float, max_norm: float |
     return RMSPropState(nus)
 
 
+def mean_grads(mesh, grads, *extra):
+    """The gradients (and any 0-dim ``extra`` values) averaged over the
+    mesh's ranks in one all-reduce of a flat buffer: (grads, *extra)."""
+    flat = mesh.sum_(torch.cat([g.reshape(-1) for g in grads]
+                               + [x.reshape(1).to(grads[0].dtype) for x in extra]))
+    flat = flat / mesh.size
+    out, i = [], 0
+    for g in grads:
+        out.append(flat[i:i + g.numel()].view_as(g))
+        i += g.numel()
+    return (out, *flat[i:])
+
+
 # ---------------------------------------------------------------------------
 # The sampler of the generic rollout
 # ---------------------------------------------------------------------------
@@ -310,19 +331,21 @@ def _make_net(hooks: EnvHooks, cfg: PPOConfig, generator):
                        generator=generator)
 
 
-def _check(hooks: EnvHooks, cfg: PPOConfig):
-    if cfg.env_shuffle and cfg.n_envs % cfg.minibatches:
+def _check(hooks: EnvHooks, cfg: PPOConfig, n_local: int | None = None):
+    n = cfg.n_envs if n_local is None else n_local
+    if cfg.env_shuffle and n % cfg.minibatches:
         raise ValueError("env_shuffle slices minibatches along the env axis: "
-                         f"n_envs={cfg.n_envs} % minibatches={cfg.minibatches}")
+                         f"{n} envs % minibatches={cfg.minibatches}")
     if cfg.fused_rollout:
         from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
         if (hooks.obs_dim, hooks.n_actions) != (FP.OBS_DIM, FP.N_ACTIONS):
             raise ValueError("fused_rollout supports the flagship full env only")
 
 
-def _keys(key, n, dev):
-    """``split(key, n)`` as a ``[n, 2]`` tensor of words on ``dev``."""
-    return torch.stack(KR.split_child(*key, torch.arange(n, device=dev)), -1)
+def _keys(key, n, dev, first: int = 0):
+    """Children ``first .. first + n - 1`` of ``split(key, N)`` (any ``N``
+    past them) as a ``[n, 2]`` tensor of words on ``dev``."""
+    return torch.stack(KR.split_child(*key, torch.arange(first, first + n, device=dev)), -1)
 
 
 def _where_lanes(lanes, a, b):
@@ -333,8 +356,9 @@ def _where_lanes(lanes, a, b):
     return where_envs(lanes, a, b)
 
 
-def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None):
-    """(init_fn, update_fn, policy_fn) of one PPO run on one device.
+def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None, mesh=None):
+    """(init_fn, update_fn, policy_fn) of one PPO run on one device, or of
+    one rank of a data-parallel run over ``mesh``.
 
     init_fn(key) -> TrainState, ``key`` the two words of a Threefry key.
     The env states and statistics are the reference's ``init_fn``'s; the
@@ -351,8 +375,18 @@ def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None):
 
     device: where to run (default: the card; it raises where there is none;
     ``device="cpu"`` runs the fused collection's plain versions).
+
+    mesh: a ``parallel.mesh.Mesh``; ``cfg.n_envs`` is then the global count,
+    and this rank holds envs ``rank * n_local .. (rank + 1) * n_local - 1``
+    of it (``n_local = n_envs // size``): ``init_fn`` resets those children
+    of ``split(k_env, n_envs)``, and ``update_fn`` reduces as the
+    reference's ``update_fn(ts, axis_name)`` does. The metrics are then
+    the means over ranks, ``episodes`` their sum.
     """
-    _check(hooks, cfg)
+    if mesh is not None and cfg.n_envs % mesh.size:
+        raise ValueError(f"n_envs={cfg.n_envs} not divisible by mesh size {mesh.size}")
+    n_local = cfg.n_envs if mesh is None else cfg.n_envs // mesh.size
+    _check(hooks, cfg, n_local)
     dev = run_device((), device)
     fused = cfg.fused_rollout
     if cfg.lr_final >= 0.0 and cfg.total_updates > 0:
@@ -379,11 +413,12 @@ def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None):
         k_net, k_env, k_run = KR.split_keys(key, 3)
         net = _make_net(hooks, cfg, torch.Generator().manual_seed((k_net[0] << 32) | k_net[1]))
         net = net.to(dev)
+        first = 0 if mesh is None else mesh.rank * n_local
         return TrainState(
             params=net, opt_state=adam_init(param_list(net)),
-            env_states=reset_envs(_keys(k_env, cfg.n_envs, dev)), key=k_run, update_idx=0,
+            env_states=reset_envs(_keys(k_env, n_local, dev, first)), key=k_run, update_idx=0,
             obs_stats=init_stats(hooks.obs_dim, dev), ret_stats=init_stats(device=dev),
-            ret_carry=torch.zeros(cfg.n_envs, device=dev))
+            ret_carry=torch.zeros(n_local, device=dev))
 
     def shape_reward(reward, action, prev_a):
         """The repeat penalty (training reward only)."""
@@ -468,6 +503,9 @@ def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None):
 
         mark("start")
         key, k_roll, k_perm, k_reset = KR.split_keys(ts.key, 4)
+        if mesh is not None:        # the carried key stays the same on every rank
+            k_roll, k_perm, k_reset = (KR.fold_in(*k, mesh.rank)
+                                       for k in (k_roll, k_perm, k_reset))
         env_states, ret_carry0 = ts.env_states, ts.ret_carry
         E = ret_carry0.shape[0]
         net = ts.params
@@ -480,9 +518,9 @@ def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None):
             env_states, traj, raw, rets, ret_carry, last_obs, last_mask = rollout(
                 net, env_states, k_roll, ts.obs_stats, ts.ret_stats, ret_carry0)
             mark("collection")
-            obs_stats = (update_stats(ts.obs_stats, traj.obs.reshape(-1, hooks.obs_dim).to(_F32))
-                         if cfg.normalize_obs else ts.obs_stats)
-            ret_stats = (update_stats(ts.ret_stats, rets.reshape(-1))
+            obs_stats = (update_stats(ts.obs_stats, traj.obs.reshape(-1, hooks.obs_dim).to(_F32),
+                                      mesh) if cfg.normalize_obs else ts.obs_stats)
+            ret_stats = (update_stats(ts.ret_stats, rets.reshape(-1), mesh)
                          if cfg.normalize_reward else ts.ret_stats)
             mark("stats")
             if cfg.normalize_obs:
@@ -518,19 +556,31 @@ def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None):
                 t, a, r = data
                 batch = (Transition(*(take(x) for x in t)), take(a), take(r))
                 total, aux = ppo_loss(net, batch, ent_coef, cfg)
-                if cfg.kl_target > 0.0:
-                    stop = stop or bool(aux[-1] > cfg.kl_target)
+                if mesh is None:
+                    if cfg.kl_target > 0.0:
+                        stop = stop or bool(aux[-1] > cfg.kl_target)
+                    if not stop:
+                        grads = torch.autograd.grad(total, params)
+                elif not stop:      # the gate reads the KL averaged over the ranks
+                    grads, kl = mean_grads(mesh, torch.autograd.grad(total, params), aux[-1])
+                    if cfg.kl_target > 0.0:
+                        stop = bool(kl > cfg.kl_target)
                 if not stop:
-                    grads = torch.autograd.grad(total, params)
                     opt = adam_update(params, grads, opt, lr_at(opt.count), cfg.max_grad_norm)
                 rows.append(torch.stack([total.detach(), *aux, flags[stop]]))
         loss, pg, vf, ent, approx_kl, kl_skipped = torch.stack(rows).mean(0)
+        mean_reward, episodes = raw.mean(), traj.done.sum()
+        if mesh is not None:
+            red = mesh.sum_(torch.stack([loss, pg, vf, ent, mean_reward, approx_kl, kl_skipped,
+                                         episodes.to(_F32)]))
+            loss, pg, vf, ent, mean_reward, approx_kl, kl_skipped = red[:7] / mesh.size
+            episodes = red[7].to(episodes.dtype)
         mark("shuffle + SGD")
         out = TrainState(params=net, opt_state=opt, env_states=env_states, key=key,
                          update_idx=ts.update_idx + 1, obs_stats=obs_stats,
                          ret_stats=ret_stats, ret_carry=ret_carry)
         return out, {"loss": loss, "pg_loss": pg, "vf_loss": vf, "entropy": ent,
-                     "mean_reward": raw.mean(), "episodes": traj.done.sum(),
+                     "mean_reward": mean_reward, "episodes": episodes,
                      "approx_kl": approx_kl, "kl_skipped": kl_skipped}
 
     def policy_fn(params, obs, mask):

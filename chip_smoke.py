@@ -208,18 +208,45 @@ non-zero:
     ``BalatroMacroGymEnv`` for 100 steps on the card against the CPU's;
     and ``train.tune.tune`` at 2 trials x 2 updates of 1024 envs on the
     flagship env (``backend`` random-search, each trial's parameters
-    ``_sample(random.Random(0))``'s).
+    ``_sample(random.Random(0))``'s);
+24. data parallel (``parallel.mesh``): (a) two ranks share the card over
+    gloo (NCCL refuses two ranks on one GPU), children of this script
+    started by ``mesh.launch`` with a timeout, loading phase 2's build:
+    ``make_distributed_ppo`` with the ``fast_decay`` recipe at 8192 x 128
+    global (4096 envs a rank), 3 updates, the launch counters reset before
+    and read after on each rank (K3a and the sampler 128, K3b 1 an
+    update), the ranks' parameters equal bit for bit after every update,
+    every action legal, metrics finite, each rank's update time by CUDA
+    events and its host time in ``all_reduce``; then phase 16's parity
+    config over the 2 ranks, the fused update against the plain versions'
+    on each rank's shard (trajectories and packed state bit for bit, the
+    sampler's log-probs within 1e-6, parameters within 1e-6); (b) one rank
+    over NCCL (in a child): the same recipe's update time beside phase
+    17's undistributed one, and its all-reduces an update; (c) over the 2
+    ranks, ``rollout_fused_sharded`` at 131072 x 256 sampled with the bench
+    jokers (each rank == ``rollout_fused(seed + rank * n_local_tiles,
+    65536, ...)`` bit for bit, K4 once a rank), fed at 4096 x 32 with
+    phase 4's scripts (the ranks' shards, concatenated, == the one-process
+    call), and ``rollout_full_sharded`` at 131072 x 32 sampled from the
+    default reset (each rank == ``rollout_full_fused`` on its slice of the
+    default reset with the strided seed; K2 and ``env_reset_kernel`` once
+    a rank); (d) ``python -m balatro_gym_tpu_torch.parallel.scaling_bench
+    --env full`` (one card: N = 1, an efficiency of 1 by construction).
+    Printed in the ``{"data_parallel": ...}`` line.
 
 Float32 matmuls run in full float32 (``allow_tf32`` stays False). The last
-four lines are the trainer's JSON record, that of phases 19-23, the
-kernels' JSON record (each kernel's bound under both INT32 rates) and the
-result line.
+five lines are the trainer's JSON record, that of phases 19-23, that of
+phase 24, the kernels' JSON record (each kernel's bound under both INT32
+rates) and the result line.
 Imports torch and the port only; the machine with the card has no JAX.
 """
 from __future__ import annotations
 
 import copy
+import datetime
+import hashlib
 import json
+import os
 import random
 import re
 import statistics
@@ -245,6 +272,7 @@ from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
 from balatro_gym_tpu_torch.ops import fused_rollout as FR
 from balatro_gym_tpu_torch.ops import hand_histograms as HH
 from balatro_gym_tpu_torch.ops import kernel_rng as KR
+from balatro_gym_tpu_torch.parallel import mesh as PM
 from balatro_gym_tpu_torch.train import a2c as TA
 from balatro_gym_tpu_torch.train import bc as BC
 from balatro_gym_tpu_torch.train import dqn as TD
@@ -2047,10 +2075,330 @@ def phase_other_learners(smi):
             "wall_s": wall, "gpu": smi}
 
 
-def main():
+# ---------------------------------------------------------------------------
+# Phase 24: data parallel
+# ---------------------------------------------------------------------------
+
+# Two ranks share the card over gloo (NCCL refuses two ranks on one GPU);
+# one rank runs over NCCL. The recipe is phase 15's at 8192 x 128 global.
+DP_RANKS, DP_UPDATES, DP_NCCL_UPDATES = 2, 3, 5
+DP_TIMEOUT_S = 420                  # a group of children, start-up included
+DP_SIM = (131072, 256)              # rollout_fused_sharded, sampled
+DP_FED = (4096, 32)                 # rollout_fused_sharded, fed (phase 4's scripts)
+DP_FULL = (131072, 32)              # rollout_full_sharded, sampled
+DP_SEED = 7
+ROOT = Path(__file__).resolve().parent
+
+
+def dp_counts():
+    return {"K3a": FP.step_fused.launches, "K3b": FP.observe_fused.launches,
+            "sampler": FP.sample_fused.launches, "K4": FR.rollout_fused.launches,
+            "K2": FF.rollout_full_fused.launches, "env_step": FP.env_step_fused.launches,
+            "env_reset": FP.env_reset_fused.launches}
+
+
+def zero_dp_counts():
+    for fn in (FP.step_fused, FP.observe_fused, FP.sample_fused, FR.rollout_fused,
+               FF.rollout_full_fused, FP.env_step_fused, FP.env_reset_fused):
+        fn.launches = 0
+
+
+class AllReduceClock:
+    """Counts ``torch.distributed.all_reduce`` calls and the host's seconds
+    in them (which include waiting for the card's queued work: gloo copies
+    the buffer to the host)."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.calls, self.seconds, self.orig = 0, 0.0, dist.all_reduce
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return self.orig(*args, **kw)
+            finally:
+                self.calls += 1
+                self.seconds += time.perf_counter() - t0
+        dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.all_reduce = self.orig
+
+
+def param_digest(net):
+    h = hashlib.sha256()
+    for p in TP.param_list(net):
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_train(mesh):
+    """(a) The fused fast_decay update over the ranks."""
+    cfg = TP.PPOConfig(**TRAIN)
+    init_fn, step_fn, _ = PM.make_distributed_ppo(TP.full_env_hooks(), cfg, mesh)
+    ts = init_fn([int(w) for w in KR.seed_key(0, device="cpu")])
+    illegal, digests, hist, upd_ms, host_ms = 0, [], [], [], []
+    zero_dp_counts()
+    with AllReduceClock() as clock:
+        for _ in range(DP_UPDATES):
+            rec = {}
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            e0.record()
+            ts, m = step_fn(ts, record=rec)
+            e1.record()
+            e1.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            upd_ms.append(e0.elapsed_time(e1))
+            illegal += int(legal_count(rec["traj"]))
+            digests.append(param_digest(ts.params))
+            hist.append({k: float(v) for k, v in m.items()})
+            del rec
+    launches = dp_counts()
+    T = cfg.rollout_len
+    want = {"K3b": DP_UPDATES, "K3a": DP_UPDATES * T, "sampler": DP_UPDATES * T}
+    assert {k: launches[k] for k in want} == want, (launches, want)
+    assert illegal == 0, f"rank {mesh.rank}: {illegal} sampled actions were illegal"
+    assert all(np.isfinite(v) for m in hist for v in m.values()), hist
+    return {"launches": launches, "digests": digests, "metrics_by_update": hist,
+            "update_ms": upd_ms, "host_update_ms": host_ms,
+            "all_reduce_calls": clock.calls, "all_reduce_host_ms": clock.seconds * 1e3,
+            "local_envs": cfg.n_envs // mesh.size}
+
+
+def dp_parity(mesh):
+    """(a) Phase 16's parity config over the ranks: the fused update against
+    the plain versions' on each rank's shard."""
+    errs = {"params": 0.0, "metrics_rel": 0.0, "log_prob": 0.0}
+    plain_hooks = TP.full_env_hooks()._replace(
+        fused_ops=(FP.observe_rows_reference, FP.sample, FP.step_rows_reference))
+    for bf16, shuffle in ((True, True), (False, False)):
+        cfg = TP.PPOConfig(**PARITY, bf16_compute=bf16, env_shuffle=shuffle)
+        init_fn, fused, _ = PM.make_distributed_ppo(TP.full_env_hooks(), cfg, mesh)
+        _, plain, _ = PM.make_distributed_ppo(plain_hooks, cfg, mesh)
+        ts = init_fn([int(w) for w in KR.seed_key(1, device="cpu")])
+        for _ in range(2):                                 # a mid-game start
+            ts, _ = fused(ts)
+        tp = copy.deepcopy(ts)
+        rk, rp = {}, {}
+        ts, mk = fused(ts, record=rk)
+        tp, mp = plain(tp, record=rp)
+        torch.cuda.synchronize()
+        what = f"rank {mesh.rank} parity (bf16={bf16}, env_shuffle={shuffle})"
+        for name in TP.Transition._fields:
+            a, b = getattr(rk["traj"], name), getattr(rp["traj"], name)
+            if name == "log_prob":
+                errs["log_prob"] = max(errs["log_prob"], float((a - b).abs().max()))
+                assert errs["log_prob"] <= 1e-6, f"{what}: log_prob off by {errs['log_prob']}"
+            elif not torch.equal(a, b):
+                raise AssertionError(f"{what}: trajectory {name} differs in "
+                                     f"{int((a != b).sum())} entries")
+        assert torch.equal(rk["raw"], rp["raw"]), f"{what}: raw rewards differ"
+        for k in ("cards", "ints", "rng"):
+            assert torch.equal(ts.env_states[k], tp.env_states[k]), f"{what}: packed {k}"
+        d = max(float((a.detach() - b.detach()).abs().max())
+                for a, b in zip(TP.param_list(ts.params), TP.param_list(tp.params)))
+        assert d <= PARAM_ATOL, f"{what}: params differ by {d}"
+        assert all(abs(float(mk[k]) - float(mp[k])) <= METRIC_RTOL * abs(float(mp[k])) + 1e-7
+                   for k in mk), f"{what}: metrics {mk} vs {mp}"
+        r = max(abs(float(mk[k]) - float(mp[k])) / max(abs(float(mp[k])), 1e-30) for k in mk)
+        errs["params"], errs["metrics_rel"] = max(errs["params"], d), max(errs["metrics_rel"], r)
+    return errs
+
+
+def dp_rollouts(mesh, tmp):
+    """(c) The sharded rollouts on this rank."""
+    out, dev, r = {}, mesh.device, mesh.rank
+    n, T = DP_SIM
+    local = n // mesh.size
+    zero_dp_counts()
+    got = PM.rollout_fused_sharded(DP_SEED, n, T, BENCH_JOKERS, mesh=mesh)
+    torch.cuda.synchronize()
+    out["sim"] = {"launches": dp_counts()["K4"], "ms": cuda_ms(
+        lambda: PM.rollout_fused_sharded(DP_SEED, n, T, BENCH_JOKERS, mesh=mesh), 3, 3)[0]}
+    one = FR.rollout_fused(DP_SEED + r * max(1, local // PM.FUSED_TILE), local, T, BENCH_JOKERS,
+                           device=dev)
+    assert_bitwise(got, one, f"rank {r}: rollout_fused_sharded vs the one-process call")
+    assert int(got["episodes"].sum()) > 0
+    out["sim"]["max_abs_err"] = max_abs_diff(got, one)
+
+    fed = np.load(Path(tmp) / "fed.npz")
+    zero_dp_counts()
+    got = PM.rollout_fused_sharded(0, DP_FED[0], DP_FED[1], fed["jokers"], mesh=mesh,
+                                   actions=fed["actions"])
+    out["fed"] = {"launches": dp_counts()["K4"]}
+    np.savez(Path(tmp) / f"fed_rank{r}.npz", **{k: v.cpu().numpy() for k, v in got.items()})
+
+    n, T = DP_FULL
+    local = n // mesh.size
+    zero_dp_counts()
+    got = PM.rollout_full_sharded(DP_SEED, n, T, mesh=mesh)
+    torch.cuda.synchronize()
+    c = dp_counts()
+    out["full"] = {"launches": c["K2"], "reset_launches": c["env_reset"], "ms": cuda_ms(
+        lambda: PM.rollout_full_sharded(DP_SEED, n, T, mesh=mesh), 3, 3)[0]}
+    init = FF.default_reset(DP_SEED, local, dev, first=r * local)
+    one = FF.rollout_full_fused(DP_SEED + r * (local // PM.FULL_TILE), local, T,
+                                init_state=init, device=dev)
+    assert_full_equal(got, one, f"rank {r}: rollout_full_sharded vs the one-process call")
+    out["full"]["max_abs_err"] = full_max_abs_diff(got, one)
+    assert (c["K2"], c["env_reset"]) == (1, 1), c
+    return out
+
+
+def dp_rank_main(tmp):
+    """A child of phase 24 (a) and (c): one of DP_RANKS ranks sharing the
+    card over gloo."""
+    PM.init_distributed(backend="gloo")
+    try:
+        mesh = PM.make_mesh()
+        res = {"rank": mesh.rank, "size": mesh.size, "device": str(mesh.device),
+               "backend": torch.distributed.get_backend(), "train": dp_train(mesh),
+               "parity": dp_parity(mesh), "rollouts": dp_rollouts(mesh, tmp)}
+    finally:
+        PM.destroy()
+    res["built_nothing"] = all(v["cached"] for v in cuda_build.build_log.values())
+    (Path(tmp) / f"rank{mesh.rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def dp_nccl_main(tmp):
+    """A child of phase 24 (b): the recipe's update on one rank over NCCL
+    (gloo where torch has no NCCL, said in the result)."""
+    import torch.distributed as dist
+    backend = "nccl" if dist.is_nccl_available() else "gloo"
+    dist.init_process_group(backend, init_method="env://", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=PM.INIT_TIMEOUT_S))
+    try:
+        mesh = PM.make_mesh()
+        cfg = TP.PPOConfig(**TRAIN)
+        init_fn, step_fn, _ = PM.make_distributed_ppo(TP.full_env_hooks(), cfg, mesh)
+        ts = init_fn([int(w) for w in KR.seed_key(0, device="cpu")])
+        ts, _ = step_fn(ts)                                 # warm-up
+        torch.cuda.synchronize()
+        times = []
+        zero_dp_counts()
+        with AllReduceClock() as clock:
+            for _ in range(DP_NCCL_UPDATES):
+                e0, e1 = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                e0.record()
+                ts, m = step_fn(ts)
+                e1.record()
+                e1.synchronize()
+                times.append(e0.elapsed_time(e1))
+        launches = dp_counts()
+        res = {"backend": dist.get_backend(), "nccl_available": dist.is_nccl_available(),
+               "update_ms": statistics.median(times), "update_ms_samples": times,
+               "all_reduce_per_update": clock.calls / DP_NCCL_UPDATES,
+               "all_reduce_host_ms_per_update": clock.seconds * 1e3 / DP_NCCL_UPDATES,
+               "launches": launches, "metrics": {k: float(v) for k, v in m.items()}}
+    finally:
+        PM.destroy()
+    T = cfg.rollout_len
+    assert {k: launches[k] for k in ("K3b", "K3a", "sampler")} == {
+        "K3b": DP_NCCL_UPDATES, "K3a": DP_NCCL_UPDATES * T, "sampler": DP_NCCL_UPDATES * T}
+    res["built_nothing"] = all(v["cached"] for v in cuda_build.build_log.values())
+    (Path(tmp) / "nccl.json").write_text(json.dumps(res))
+    return 0
+
+
+def phase_data_parallel(smi, train_ms):
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(ROOT), os.environ.get("PYTHONPATH")])))
+    with tempfile.TemporaryDirectory() as tmp:
+        n, steps = DP_FED
+        jok = JOKER_SETS[np.arange(n) % len(JOKER_SETS)]
+        acts, _, _ = legal_script(jok, n, steps, seed=11)
+        np.savez(Path(tmp) / "fed.npz", jokers=jok, actions=acts)
+        t0 = time.perf_counter()
+        PM.launch([sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank", tmp], DP_RANKS,
+                  timeout=DP_TIMEOUT_S, env=env, cwd=ROOT)
+        ranks_s = time.perf_counter() - t0
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in range(DP_RANKS)]
+        shards = [dict(np.load(Path(tmp) / f"fed_rank{r}.npz")) for r in range(DP_RANKS)]
+        one = FR.rollout_fused(0, n, steps, jok, actions=acts, device=DEV)
+        for k, v in one.items():
+            cat = np.concatenate([s[k] for s in shards])
+            if not np.array_equal(cat, v.cpu().numpy()):
+                raise AssertionError(f"fed shards concatenated vs the one-process call: {k}")
+        t0 = time.perf_counter()
+        PM.launch([sys.executable, str(ROOT / "chip_smoke.py"), "--dp-nccl", tmp], 1,
+                  timeout=DP_TIMEOUT_S, env=env, cwd=ROOT)
+        nccl_s = time.perf_counter() - t0
+        nccl = json.loads((Path(tmp) / "nccl.json").read_text())
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "balatro_gym_tpu_torch.parallel.scaling_bench",
+                           "--env", "full"], capture_output=True, text=True, cwd=ROOT, env=env,
+                          timeout=DP_TIMEOUT_S)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    bench = json.loads(proc.stdout.strip().splitlines()[-1])
+    bench_s = time.perf_counter() - t0
+    assert bench["n_devices"] == torch.cuda.device_count() and bench["value"] > 0
+
+    for r, res in enumerate(ranks):
+        assert (res["rank"], res["size"], res["backend"]) == (r, DP_RANKS, "gloo"), res
+        assert res["built_nothing"], f"rank {r} built a kernel"
+    for u in range(DP_UPDATES):
+        assert len({res["train"]["digests"][u] for res in ranks}) == 1, \
+            f"update {u}: the ranks' parameters differ"
+        assert ranks[0]["train"]["metrics_by_update"][u] == \
+            ranks[1]["train"]["metrics_by_update"][u], u
+    assert nccl["built_nothing"], "the NCCL child built a kernel"
+    cfg = TP.PPOConfig(**TRAIN)
+    want_ar = cfg.epochs * cfg.minibatches + 4 + 1       # minibatches, two statistics, metrics
+    assert nccl["all_reduce_per_update"] == want_ar, nccl
+    assert all(res["train"]["all_reduce_calls"] == DP_UPDATES * want_ar for res in ranks)
+    wall = time.perf_counter() - t_phase
+    per_rank = [{"update_ms": res["train"]["update_ms"],
+                 "all_reduce_host_ms": res["train"]["all_reduce_host_ms"],
+                 "launches": res["train"]["launches"]} for res in ranks]
+    log("24 data parallel", f"ok: (a) {DP_RANKS} ranks sharing the card over gloo, "
+        f"fast_decay {cfg.n_envs}x{cfg.rollout_len} global ({ranks[0]['train']['local_envs']} "
+        f"envs a rank), {DP_UPDATES} updates: launches a rank "
+        f"{[res['train']['launches'] for res in ranks]}; parameters equal across ranks after "
+        f"every update; every action legal; update ms by rank (CUDA events; the first "
+        f"holds each process's start-up on the card) "
+        + "; ".join(f"rank {r}: {', '.join(f'{x:.3f}' for x in p['update_ms'])} with "
+                    f"{p['all_reduce_host_ms']:.3f} ms of host in {want_ar * DP_UPDATES} "
+                    f"all_reduce calls" for r, p in enumerate(per_rank))
+        + f"; parity over the ranks (fused == plain on each shard): params within "
+        f"{max(res['parity']['params'] for res in ranks):.3g}, log-probs within "
+        f"{max(res['parity']['log_prob'] for res in ranks):.3g}; (b) one rank over "
+        f"{nccl['backend']} (nccl available: {nccl['nccl_available']}): update median "
+        f"{nccl['update_ms']:.3f} ms (samples {', '.join(f'{x:.3f}' for x in nccl['update_ms_samples'])}"
+        f") against phase 17's undistributed {train_ms:.3f} ms, "
+        f"{nccl['all_reduce_per_update']:g} all-reduces an update ({nccl['all_reduce_host_ms_per_update']:.3f}"
+        f" ms of host in them); (c) rollout_fused_sharded {DP_SIM[0]}x{DP_SIM[1]} sampled: "
+        f"each rank == rollout_fused(seed + rank * n_local_tiles) bitwise, K4 "
+        f"{[res['rollouts']['sim']['launches'] for res in ranks]} launches, a call "
+        f"{[round(res['rollouts']['sim']['ms'], 3) for res in ranks]} ms (CUDA events, median "
+        f"of 3 x 3 calls, both ranks at once); fed {n}x{steps}: "
+        f"the shards concatenated == the one-process call; rollout_full_sharded "
+        f"{DP_FULL[0]}x{DP_FULL[1]}: each rank == rollout_full_fused on its slice bitwise, K2 "
+        f"{[res['rollouts']['full']['launches'] for res in ranks]} and env_reset "
+        f"{[res['rollouts']['full']['reset_launches'] for res in ranks]} launches, a call "
+        f"{[round(res['rollouts']['full']['ms'], 3) for res in ranks]} ms; (d) scaling_bench "
+        f"--env full: {json.dumps(bench)} (one card: N = 1); children {ranks_s:.1f} s, "
+        f"{nccl_s:.1f} s, {bench_s:.1f} s; phase {wall:.1f} s [{smi}]")
+    return {"ranks": DP_RANKS, "config": TRAIN, "updates": DP_UPDATES, "per_rank": per_rank,
+            "digests_equal": True, "parity": [res["parity"] for res in ranks],
+            "nccl": nccl, "undistributed_update_ms": train_ms,
+            "rollouts": [res["rollouts"] for res in ranks], "scaling_bench": bench,
+            "wall_s": wall, "gpu": smi}
+
+
+def main(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA card", file=sys.stderr)
         return 1
+    if argv[:1] == ["--dp-rank"]:
+        return dp_rank_main(argv[1])
+    if argv[:1] == ["--dp-nccl"]:
+        return dp_nccl_main(argv[1])
     smi = phase_device()
     phase_build()
     launches = phase_main_path()
@@ -2074,6 +2422,7 @@ def main():
     gym = phase_gym(smi)
     imitation = phase_imitation(smi)
     learners = phase_other_learners(smi)
+    dp = phase_data_parallel(smi, tt["update_ms"])
 
     # (bytes, integer operations) of each kernel's measured call
     work = {"fused_rollout": (N_ENVS * ((FR.N_SCAL + 32 + 32 + 64) * 4
@@ -2091,11 +2440,13 @@ def main():
         "name": "fused_rollout", "route": "cuda", "source": src + "fused_rollout.cu",
         "replaces": "balatro_gym_tpu/ops/fused_rollout.py:126",
         "launches": launches, "max_abs_err": err, **k4,
+        "dp_launches_by_rank": [r["sim"]["launches"] for r in dp["rollouts"]],
         "shape": [N_ENVS, N_STEPS], "plain_shape": [N_ENVS, 32],
         "step_ops": K4_STEP_OPS}, {
         "name": "fused_full_rollout", "route": "cuda", "source": src + "fused_full_rollout.cu",
         "replaces": "balatro_gym_tpu/ops/fused_full_rollout.py:2299",
         "launches": full_launches, "max_abs_err": full_err, "ms": fk_ms, "plain_ms": fp_ms,
+        "dp_launches_by_rank": [r["full"]["launches"] for r in dp["rollouts"]],
         "kernel_alone_ms": fa_ms,
         "shape": [N_ENVS, N_STEPS], "plain_shape": [N_ENVS, FULL_PLAIN_STEPS],
         "env_steps_per_s": fk_rate, "plain_env_steps_per_s": fp_rate, **k2_shape}]
@@ -2108,6 +2459,7 @@ def main():
         kernels.append({
             "name": kname, "route": "cuda", "source": policy_src, "replaces": replaces,
             "launches": policy_launches[name], "trainer_launches": train_launches[name],
+            "dp_launches_by_rank": [r["launches"][name] for r in dp["per_rank"]],
             "max_abs_err": policy_err[name],
             "ms": tm["card_ms"] if tm["card_ms"] is not None else call_ms,
             "plain_ms": tm["plain"][0],
@@ -2155,6 +2507,7 @@ def main():
         "launches": generic["launches_main_path"]["env_reset"],
         "imitation_launches": imitation["bc"]["launches_main_path"]["env_reset"],
         "a2c_launches": learners["a2c"]["launches_main_path"]["env_reset"],
+        "dp_launches_by_rank": [r["full"]["reset_launches"] for r in dp["rollouts"]],
         "dqn_launches": learners["dqn"]["launches_main_path"]["env_reset"],
         "max_abs_err": es["reset_max_abs_err"], "ms": rs["autoreset"]["ms"],
         "ms_from": "events behind a sleep",
@@ -2206,6 +2559,7 @@ def main():
     print(json.dumps({"trainer": trainer}), flush=True)
     print(json.dumps({"generic_trainer": generic, "evaluate": ev, "gym": gym,
                       "imitation": imitation, "other_learners": learners}), flush=True)
+    print(json.dumps({"data_parallel": dp}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2214,4 +2568,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -594,13 +594,53 @@ def test_cli_trains_and_writes_the_summary(tmp_path):
     assert [ln.get("update") for ln in lines[:2]] == [1, 2]
 
 
-# the id the case had beside the A2C and DQN cases, which now train (below)
-@pytest.mark.parametrize("argv,item", [
-    pytest.param(["--distributed"], "queue 1 item 10", id="argv2-queue 1 item 10")])
-def test_cli_unsupported_options_exit_with_their_roadmap_item(argv, item):
-    with pytest.raises(SystemExit) as exc:
-        TCLI.main(argv + ["--device", "cpu", "--updates", "1", "--summary", ""])
-    assert exc.value.code not in (0, None) and item in str(exc.value.code)
+TINY_ARGV = ["--env", "sim", "--updates", "2", "--n-envs", "16", "--rollout", "4", "--epochs",
+             "2", "--minibatches", "2", "--hidden", "32", "--device", "cpu"]
+
+
+def test_cli_distributed_alone_trains_as_a_mesh_of_one(tmp_path):
+    """``--distributed`` with no launcher trains through
+    ``make_distributed_ppo`` over a mesh of one rank."""
+    summary = tmp_path / "summary.json"
+    got = TCLI.main(TINY_ARGV + ["--distributed", "--summary", str(summary)])
+    assert set(got) == SUMMARY_KEYS and json.loads(summary.read_text()) == got
+    assert got["n_devices"] == 1 and got["total_env_steps"] == 2 * 16 * 4
+    assert all(np.isfinite(v) for v in got["final_metrics"].values())
+
+
+def _torchrun(argv, tmp_path):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("WORLD_SIZE", None)
+    return subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+         "-m", "balatro_gym_tpu_torch.train.cli", *argv], capture_output=True, text=True,
+        cwd=tmp_path, env=env, timeout=300)
+
+
+def test_cli_distributed_trains_over_two_launched_ranks(tmp_path):
+    """Two ranks under torchrun train one learner over gloo; only rank 0
+    prints and writes the summary, whose ``n_devices`` is the world size."""
+    summary = tmp_path / "summary.json"
+    proc = _torchrun(TINY_ARGV + ["--distributed", "--log-every", "1", "--summary",
+                                  str(summary)], tmp_path)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    got = json.loads(summary.read_text())
+    assert set(got) == SUMMARY_KEYS and got["n_devices"] == 2
+    assert got["total_env_steps"] == 2 * 16 * 4
+    assert all(np.isfinite(v) for v in got["final_metrics"].values())
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    assert [ln.get("update") for ln in lines] == [1, 2, None]       # one rank printed
+    assert lines[-1] == got
+
+
+def test_cli_single_device_learner_refuses_launched_ranks(tmp_path):
+    """``--algorithm a2c`` trains alone (as in the reference), so under a
+    launcher of two ranks it exits non-zero instead of training two
+    separate learners."""
+    proc = _torchrun(TINY_ARGV + ["--algorithm", "a2c", "--distributed", "--summary", ""],
+                     tmp_path)
+    assert proc.returncode != 0
+    assert "only --distributed PPO trains over ranks" in proc.stdout + proc.stderr
 
 
 def test_cli_full_env_trains_without_the_fused_rollout():
