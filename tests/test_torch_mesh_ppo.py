@@ -5,7 +5,7 @@ The reference runs in process (x64, as tests/conftest.py sets it and as
 tests/test_torch_ppo.py runs it): ``make_distributed_ppo(sim_env_hooks(),
 PPOConfig(**TINY, **case), make_mesh(2))`` from ``init_fn(key(0))``, two
 updates on the conftest's virtual CPU devices, for every case of
-tests/test_torch_ppo.py. The port runs as 2 gloo ranks
+tests/test_torch_ppo.py and one without the gradient clip. The port runs as 2 gloo ranks
 (tests/test_torch_mesh_ranks.py): before each update, rank ``r`` loads
 shard ``r`` of the reference's state (its envs and return carry; the rest
 replicated) and takes one update. Rank ``r``'s env states equal the
@@ -41,6 +41,10 @@ from tests.test_torch_ppo import (ATOL, CASES, METRICS, PARAM_ATOL, RTOL, STATS_
 
 UPDATES = 2
 RANKS = 2
+# tests/test_torch_ppo.py's cases, and one without the gradient clip: the
+# clip rescales the gradients to a fixed norm, so only unclipped gradients
+# (Adam's moments) show that the ranks' gradients are averaged, not summed
+MESH_CASES = {**CASES, "unclipped": {"max_grad_norm": 1e9}}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -121,25 +125,25 @@ def expected(hooks, cfg, state, lo, n, packed=False):
 
 @pytest.fixture(scope="module")
 def reference():
-    return {case: reference_run(JP.sim_env_hooks(), JP.PPOConfig(**TINY, **CASES[case]), RANKS)
-            for case in CASES}
+    return {case: reference_run(JP.sim_env_hooks(), JP.PPOConfig(**TINY, **MESH_CASES[case]),
+                                RANKS) for case in MESH_CASES}
 
 
 @pytest.fixture(scope="module")
 def ranks(reference):
-    runs = [{"cfg": {**TINY, **CASES[case]}, "updates": UPDATES,
+    runs = [{"cfg": {**TINY, **MESH_CASES[case]}, "updates": UPDATES,
              "starts": rank_starts(reference[case][0], TINY["n_envs"])}
-            for case in CASES]
+            for case in MESH_CASES]
     res = run_ranks("ppo", RANKS, {"env": "sim", "runs": runs})
     assert [r["rank"] for r in res] == list(range(RANKS)) and all(r["backend"] == "gloo"
                                                                  for r in res)
-    return {case: [r["result"][i] for r in res] for i, case in enumerate(CASES)}
+    return {case: [r["result"][i] for r in res] for i, case in enumerate(MESH_CASES)}
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", list(MESH_CASES))
 def test_sim_update_matches_reference_mesh(case, reference, ranks):
     states, metrics = reference[case]
-    cfg = TP.PPOConfig(**TINY, **CASES[case])
+    cfg = TP.PPOConfig(**TINY, **MESH_CASES[case])
     hooks, n = TP.sim_env_hooks(), TINY["n_envs"] // RANKS
     for u in range(UPDATES):
         outs = [ranks[case][r][u] for r in range(RANKS)]
