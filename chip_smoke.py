@@ -221,8 +221,9 @@ non-zero:
     config over the 2 ranks, the fused update against the plain versions'
     on each rank's shard (trajectories and packed state bit for bit, the
     sampler's log-probs within 1e-6, parameters within 1e-6); (b) one rank
-    over NCCL (in a child): the same recipe's update time beside phase
-    17's undistributed one, and its all-reduces an update; (c) over the 2
+    over NCCL (in a child): the same recipe's update time beside the
+    undistributed update's, the two in turns in that process, and phase
+    17's, and its all-reduces an update; (c) over the 2
     ranks, ``rollout_fused_sharded`` at 131072 x 256 sampled with the bench
     jokers (each rank == ``rollout_fused(seed + rank * n_local_tiles,
     65536, ...)`` bit for bit, K4 once a rank), fed at 4096 x 32 with
@@ -2264,9 +2265,22 @@ def dp_rank_main(tmp):
     return 0
 
 
+def timed_update(step_fn, ts):
+    """(state, metrics, ms by CUDA events) of one update."""
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    ts, m = step_fn(ts)
+    e1.record()
+    e1.synchronize()
+    return ts, m, e0.elapsed_time(e1)
+
+
 def dp_nccl_main(tmp):
     """A child of phase 24 (b): the recipe's update on one rank over NCCL
-    (gloo where torch has no NCCL, said in the result)."""
+    (gloo where torch has no NCCL, said in the result), and in the same
+    process the undistributed update, the two in turns (plain, mesh, mesh,
+    plain), so that their difference is the key folding's and the
+    reductions' cost."""
     import torch.distributed as dist
     backend = "nccl" if dist.is_nccl_available() else "gloo"
     dist.init_process_group(backend, init_method="env://", world_size=1, rank=0,
@@ -2274,32 +2288,37 @@ def dp_nccl_main(tmp):
     try:
         mesh = PM.make_mesh()
         cfg = TP.PPOConfig(**TRAIN)
+        key = [int(w) for w in KR.seed_key(0, device="cpu")]
         init_fn, step_fn, _ = PM.make_distributed_ppo(TP.full_env_hooks(), cfg, mesh)
-        ts = init_fn([int(w) for w in KR.seed_key(0, device="cpu")])
+        plain_init, plain_fn, _ = TP.make_ppo(TP.full_env_hooks(), cfg, device=mesh.device)
+        ts, tp = init_fn(key), plain_init(key)
         ts, _ = step_fn(ts)                                 # warm-up
+        tp, _ = plain_fn(tp)
         torch.cuda.synchronize()
-        times = []
+        times, plain_times, calls, seconds = [], [], 0, 0.0
         zero_dp_counts()
-        with AllReduceClock() as clock:
-            for _ in range(DP_NCCL_UPDATES):
-                e0, e1 = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-                e0.record()
-                ts, m = step_fn(ts)
-                e1.record()
-                e1.synchronize()
-                times.append(e0.elapsed_time(e1))
+        for i in range(2 * DP_NCCL_UPDATES):
+            if i % 4 in (1, 2):
+                with AllReduceClock() as clock:
+                    ts, m, ms = timed_update(step_fn, ts)
+                times.append(ms)
+                calls, seconds = calls + clock.calls, seconds + clock.seconds
+            else:
+                tp, _, ms = timed_update(plain_fn, tp)
+                plain_times.append(ms)
         launches = dp_counts()
         res = {"backend": dist.get_backend(), "nccl_available": dist.is_nccl_available(),
                "update_ms": statistics.median(times), "update_ms_samples": times,
-               "all_reduce_per_update": clock.calls / DP_NCCL_UPDATES,
-               "all_reduce_host_ms_per_update": clock.seconds * 1e3 / DP_NCCL_UPDATES,
+               "undistributed_ms": statistics.median(plain_times),
+               "undistributed_ms_samples": plain_times,
+               "all_reduce_per_update": calls / len(times),
+               "all_reduce_host_ms_per_update": seconds * 1e3 / len(times),
                "launches": launches, "metrics": {k: float(v) for k, v in m.items()}}
     finally:
         PM.destroy()
-    T = cfg.rollout_len
+    T, n = cfg.rollout_len, 2 * DP_NCCL_UPDATES
     assert {k: launches[k] for k in ("K3b", "K3a", "sampler")} == {
-        "K3b": DP_NCCL_UPDATES, "K3a": DP_NCCL_UPDATES * T, "sampler": DP_NCCL_UPDATES * T}
+        "K3b": n, "K3a": n * T, "sampler": n * T}
     res["built_nothing"] = all(v["cached"] for v in cuda_build.build_log.values())
     (Path(tmp) / "nccl.json").write_text(json.dumps(res))
     return 0
@@ -2370,7 +2389,10 @@ def phase_data_parallel(smi, train_ms):
         f"{max(res['parity']['log_prob'] for res in ranks):.3g}; (b) one rank over "
         f"{nccl['backend']} (nccl available: {nccl['nccl_available']}): update median "
         f"{nccl['update_ms']:.3f} ms (samples {', '.join(f'{x:.3f}' for x in nccl['update_ms_samples'])}"
-        f") against phase 17's undistributed {train_ms:.3f} ms, "
+        f"), the undistributed update in turns with it in the same process "
+        f"{nccl['undistributed_ms']:.3f} ms (samples "
+        f"{', '.join(f'{x:.3f}' for x in nccl['undistributed_ms_samples'])}), phase 17's "
+        f"{train_ms:.3f} ms, "
         f"{nccl['all_reduce_per_update']:g} all-reduces an update ({nccl['all_reduce_host_ms_per_update']:.3f}"
         f" ms of host in them); (c) rollout_fused_sharded {DP_SIM[0]}x{DP_SIM[1]} sampled: "
         f"each rank == rollout_fused(seed + rank * n_local_tiles) bitwise, K4 "
