@@ -1,0 +1,9 @@
+"""The engine's step kernel (``env_step_kernel``): its byte bound over its
+median profiled time, in %."""
+from benchmark.harness import trace as T
+from benchmark.harness import yardstick as Y
+
+
+def read(ctx):
+    t = T.kernel_median_s(ctx["trace"], "env_step_kernel")
+    return Y.roofline_pct(Y.ENV_STEP_BYTES * ctx["n_envs"], t)
