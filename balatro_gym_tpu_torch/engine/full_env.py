@@ -22,6 +22,13 @@ function runs on the device its state lies on.
 * :func:`observe_vector` and :func:`action_mask` are the batched policy
   inputs: K3b (``observe_fused``) on a card, its plain rows on the CPU.
   :func:`observe` is the reference's Dict observation, batched, in torch.
+
+Spans (``utils/profiling.py``): ``engine.step_autoreset`` (a pack, the
+step and reset kernels' launches as ``engine.kernels``, an unpack),
+``engine.reset``, ``engine.autoreset`` and ``engine.observe`` (a pack and
+K3b as ``engine.k3b``, for :func:`observe_vector` and :func:`action_mask`
+alike), with the packed-row conversions inside them as ``engine.pack`` and
+``engine.unpack``.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from balatro_gym_tpu_torch.core.device import const
 from balatro_gym_tpu_torch.engine import consumable_logic as CL
 from balatro_gym_tpu_torch.engine import shop_logic as SL
 from balatro_gym_tpu_torch.ops import kernel_rng as KR
+from balatro_gym_tpu_torch.utils import profiling as P
 
 MAX_DECK = 64     # 52 base cards + slots for created cards
 MAX_HAND = 10     # hand positions; hand_size starts at 8 and never grows
@@ -126,16 +134,17 @@ def reset(keys) -> FullEnvState:
     'deck_shuffle'), 0), 52)``, phase BLIND_SELECT, money 4, blind 300.
     On a card ``env_reset_kernel`` writes every env's rows; with the keys
     on the CPU it is :func:`reset_reference`."""
-    if keys.device.type == "cpu":
-        return reset_reference(keys)
-    from balatro_gym_tpu_torch.ops import fused_full_rollout as FF
-    from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
-    B, dev = keys.shape[0], keys.device
-    rows = {"cards": torch.empty(6, MAX_DECK, B, dtype=torch.int32, device=dev),
-            "ints": torch.empty(FF.NI, B, dtype=torch.int32, device=dev),
-            "rng": torch.empty(FF.NR, B, dtype=torch.int32, device=dev)}
-    every = torch.ones(B, dtype=torch.bool, device=dev)
-    return FF.unpack_full_state(FP.env_reset_fused(rows, every, keys, device=dev))
+    with P.span("engine.reset"):
+        if keys.device.type == "cpu":
+            return reset_reference(keys)
+        from balatro_gym_tpu_torch.ops import fused_full_rollout as FF
+        from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
+        B, dev = keys.shape[0], keys.device
+        rows = {"cards": torch.empty(6, MAX_DECK, B, dtype=torch.int32, device=dev),
+                "ints": torch.empty(FF.NI, B, dtype=torch.int32, device=dev),
+                "rng": torch.empty(FF.NR, B, dtype=torch.int32, device=dev)}
+        every = torch.ones(B, dtype=torch.bool, device=dev)
+        return _unpack(FP.env_reset_fused(rows, every, keys, device=dev))
 
 
 def reset_reference(keys) -> FullEnvState:
@@ -200,13 +209,13 @@ def autoreset(state: FullEnvState, done) -> FullEnvState:
     """``state`` with each ``done`` env replaced by ``reset(fold_in(key,
     step_count))``: on a card ``env_reset_kernel`` on the packed state, on
     the CPU :func:`reset_reference` merged where done."""
-    if state.ante.device.type != "cpu":
-        from balatro_gym_tpu_torch.ops import fused_full_rollout as FF
-        from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
-        packed = FP.env_reset_fused(FF.pack_full_state(state), done, device=state.ante.device)
-        return FF.unpack_full_state(packed)
-    k1, k2 = KR.fold_in(state.key[:, 0], state.key[:, 1], state.step_count.to(torch.int64))
-    return where_envs(done, reset_reference(torch.stack([k1, k2], -1)), state)
+    with P.span("engine.autoreset"):
+        if state.ante.device.type != "cpu":
+            from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
+            packed = FP.env_reset_fused(_pack(state), done, device=state.ante.device)
+            return _unpack(packed)
+        k1, k2 = KR.fold_in(state.key[:, 0], state.key[:, 1], state.step_count.to(torch.int64))
+        return where_envs(done, reset_reference(torch.stack([k1, k2], -1)), state)
 
 
 def _hand_card_view(state: FullEnvState):
@@ -222,10 +231,24 @@ def _hand_card_view(state: FullEnvState):
 
 
 # The kernels' modules import this one, so functions import them when called.
-def _policy_inputs(state: FullEnvState):
+def _pack(state: FullEnvState):
     from balatro_gym_tpu_torch.ops import fused_full_rollout as FF
+    with P.span("engine.pack"):
+        return FF.pack_full_state(state)
+
+
+def _unpack(packed) -> FullEnvState:
+    from balatro_gym_tpu_torch.ops import fused_full_rollout as FF
+    with P.span("engine.unpack"):
+        return FF.unpack_full_state(packed)
+
+
+def _policy_inputs(state: FullEnvState):
     from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
-    return FP.observe_fused(FF.pack_full_state(state), device=state.ante.device)
+    with P.span("engine.observe"):
+        rows = _pack(state)
+        with P.span("engine.k3b"):
+            return FP.observe_fused(rows, device=state.ante.device)
 
 
 def observe_vector(state: FullEnvState) -> torch.Tensor:
@@ -245,11 +268,9 @@ def step(state: FullEnvState, actions):
     state, done set; an illegal action costs -1 and changes nothing but the
     step count; an env already over (done, ante past 100 or a career past
     1e9) gets 0."""
-    from balatro_gym_tpu_torch.ops import fused_full_rollout as FF
     from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
-    packed, reward, done = FP.env_step_fused(FF.pack_full_state(state), actions,
-                                             device=state.ante.device)
-    return FF.unpack_full_state(packed), reward, done
+    packed, reward, done = FP.env_step_fused(_pack(state), actions, device=state.ante.device)
+    return _unpack(packed), reward, done
 
 
 def step_autoreset(state: FullEnvState, actions):
@@ -257,14 +278,16 @@ def step_autoreset(state: FullEnvState, actions):
     step_count))`` of its post-step state: on a card pack,
     ``env_step_kernel``, ``env_reset_kernel`` on the done envs, unpack."""
     dev = state.ante.device
-    if dev.type == "cpu":
-        st, reward, done = step(state, actions)
-        return autoreset(st, done), reward, done
-    from balatro_gym_tpu_torch.ops import fused_full_rollout as FF
-    from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
-    packed, reward, done = FP.env_step_fused(FF.pack_full_state(state), actions, device=dev)
-    FP.env_reset_fused(packed, done, device=dev)
-    return FF.unpack_full_state(packed), reward, done
+    with P.span("engine.step_autoreset"):
+        if dev.type == "cpu":
+            st, reward, done = step(state, actions)
+            return autoreset(st, done), reward, done
+        from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
+        rows = _pack(state)
+        with P.span("engine.kernels"):
+            packed, reward, done = FP.env_step_fused(rows, actions, device=dev)
+            FP.env_reset_fused(packed, done, device=dev)
+        return _unpack(packed), reward, done
 
 
 def observe(state: FullEnvState) -> dict:

@@ -16,7 +16,13 @@ reference's op order.
   called with ``device="cpu"``, where it runs the plain version; on a card
   it launches ``csrc/fused_full_rollout.cu`` (built with nvcc on first use)
   or raises. It counts its launches in
-  ``rollout_full_fused.launches``.
+  ``rollout_full_fused.launches``. A call is the span ``rollout.call``
+  (``utils/profiling.py``), holding ``rollout.reset`` (the default reset),
+  ``rollout.pack``, ``rollout.launch`` (the kernel's enqueue, or the plain
+  version) and ``rollout.unpack``. :func:`pack_full_state` and
+  :func:`unpack_full_state` open ``pack.scalars``, ``unpack.rows`` and
+  ``unpack.scalars`` for their later parts, so that no span holds more
+  host ops than a profile's gap labeller looks back over (256).
 * ``rollout_full_rows_reference`` is the plain version: batched tensor ops
   over ``[rows, B]`` tensors, branch-free as the TPU program is (every
   branch is computed for every env and merged with ``torch.where``), on any
@@ -62,6 +68,7 @@ from balatro_gym_tpu_torch.ops import boss as B
 from balatro_gym_tpu_torch.ops import cuda_build
 from balatro_gym_tpu_torch.ops import joker_tables as JT
 from balatro_gym_tpu_torch.ops import kernel_rng as KR
+from balatro_gym_tpu_torch.utils import profiling as P
 
 N_DECK = 64
 N_HAND = 8    # hand positions the step touches; packed rows 8-9 stay -1
@@ -211,6 +218,14 @@ def pack_full_state(st: FE.FullEnvState):
                           ("shop_cost", R_SCO, N_SHOP), ("hand_levels", R_LVL, N_LVL),
                           ("hand_play_counts", R_PC, N_LVL)):
         ints[row:row + n] = getattr(st, field).T
+    with P.span("pack.scalars"):
+        return {"cards": cards, "ints": _pack_scalars(st, ints), "rng": _w2i(
+            torch.cat([st.key.T, st.rng_counters.T]))}
+
+
+def _pack_scalars(st: FE.FullEnvState, ints):
+    """``ints`` with the state's per-env scalar rows written."""
+    dev = ints.device
     weights = torch.tensor(1, dtype=_I64, device=dev) << torch.arange(32, device=dev)
     bp = st.boss_played_slots.to(_I64)
     for row, val in (
@@ -230,8 +245,7 @@ def pack_full_state(st: FE.FullEnvState):
             (S_HPT, st.hands_played_total), (S_HPA, st.hands_played_ante),
             (S_JSOLD, st.jokers_sold), (S_DONE, st.done), (S_STEPC, st.step_count)):
         ints[row] = val
-    rng = _w2i(torch.cat([st.key.T, st.rng_counters.T]))
-    return {"cards": cards, "ints": ints, "rng": rng}
+    return ints
 
 
 def unpack_full_state(packed) -> FE.FullEnvState:
@@ -246,32 +260,35 @@ def unpack_full_state(packed) -> FE.FullEnvState:
     bp = torch.cat([(_i2w(ints[S_BPLO])[:, None] >> bits) & 1,
                     (_i2w(ints[S_BPHI])[:, None] >> bits) & 1], 1).bool()
     ch = [cards[c].T.contiguous() for c in range(6)]
-    return FE.FullEnvState(
-        card_rank=ch[CH_RANK], card_suit=ch[CH_SUIT], card_enh=ch[CH_ENH],
-        card_ed=ch[CH_ED], card_seal=ch[CH_SEAL], card_alive=ch[CH_ALIVE].bool(),
-        hand_idx=rows(R_HIDX, 10), hand_n=ints[S_HN].clone(),
-        selected=rows(R_SEL, 8).bool(), face_down=rows(R_FD, 8).bool(),
-        highlighted=rows(R_HIGH, 8).bool(),
-        jokers=rows(R_JOK, 5), joker_n=ints[S_JN].clone(),
-        green_mult=ints[S_GREEN].clone(), bus_mult=ints[S_BUS].clone(),
-        cons=rows(R_CONS, 5), cons_n=ints[S_CN].clone(), vouchers=ints[S_VOU].clone(),
-        joker_slots=ints[S_JSLOTS].clone(), cons_slots=ints[S_CSLOTS].clone(),
-        ante=ints[S_ANTE].clone(), round=ints[S_ROUND].clone(),
-        phase=ints[S_PHASE].clone(), chips_needed=ints[S_NEED].clone(),
-        chips_scored=ints[S_CAREER].clone(), round_chips_scored=ints[S_RCHIPS].clone(),
-        money=ints[S_MONEY].clone(), hands_left=ints[S_HL].clone(),
-        discards_left=ints[S_DL].clone(), hand_size=ints[S_HSIZE].clone(),
-        hand_levels=rows(R_LVL, 12), hand_play_counts=rows(R_PC, 12),
-        shop_type=rows(R_STY, 10), shop_item=rows(R_SIT, 10), shop_cost=rows(R_SCO, 10),
-        shop_n=ints[S_SN].clone(), reroll_base=ints[S_RBASE].clone(),
-        shop_reroll_cost=ints[S_RCOST].clone(), boss_active=ints[S_BACT].bool(),
-        boss_id=ints[S_BID].clone(), boss_played_types=ints[S_BTYPES].clone(),
-        boss_first_hand=ints[S_BFIRST].bool(), boss_verdant_req=ints[S_BVERD].clone(),
-        boss_played_slots=bp, hands_played_total=ints[S_HPT].clone(),
-        hands_played_ante=ints[S_HPA].clone(), best_hand_this_ante=ints[S_BEST].clone(),
-        jokers_sold=ints[S_JSOLD].clone(), key=_i2w(rng[:2]).T.contiguous(),
-        rng_counters=_i2w(rng[2:]).T.contiguous(), done=ints[S_DONE].bool(),
-        step_count=ints[S_STEPC].clone())
+    with P.span("unpack.rows"):
+        wide = dict(
+            hand_idx=rows(R_HIDX, 10), selected=rows(R_SEL, 8).bool(),
+            face_down=rows(R_FD, 8).bool(), highlighted=rows(R_HIGH, 8).bool(),
+            jokers=rows(R_JOK, 5), cons=rows(R_CONS, 5),
+            hand_levels=rows(R_LVL, 12), hand_play_counts=rows(R_PC, 12),
+            shop_type=rows(R_STY, 10), shop_item=rows(R_SIT, 10), shop_cost=rows(R_SCO, 10),
+            key=_i2w(rng[:2]).T.contiguous(), rng_counters=_i2w(rng[2:]).T.contiguous())
+    with P.span("unpack.scalars"):
+        return FE.FullEnvState(
+            card_rank=ch[CH_RANK], card_suit=ch[CH_SUIT], card_enh=ch[CH_ENH],
+            card_ed=ch[CH_ED], card_seal=ch[CH_SEAL], card_alive=ch[CH_ALIVE].bool(),
+            boss_played_slots=bp, **wide, **{f: ints[row].clone() for f, row in _SCALAR_ROWS},
+            **{f: ints[row].bool() for f, row in _BOOL_ROWS})
+
+
+# The per-env scalar fields of a FullEnvState and their rows in ``ints``.
+_SCALAR_ROWS = (
+    ("hand_n", S_HN), ("joker_n", S_JN), ("green_mult", S_GREEN), ("bus_mult", S_BUS),
+    ("cons_n", S_CN), ("vouchers", S_VOU), ("joker_slots", S_JSLOTS),
+    ("cons_slots", S_CSLOTS), ("ante", S_ANTE), ("round", S_ROUND), ("phase", S_PHASE),
+    ("chips_needed", S_NEED), ("chips_scored", S_CAREER), ("round_chips_scored", S_RCHIPS),
+    ("money", S_MONEY), ("hands_left", S_HL), ("discards_left", S_DL),
+    ("hand_size", S_HSIZE), ("shop_n", S_SN), ("reroll_base", S_RBASE),
+    ("shop_reroll_cost", S_RCOST), ("boss_id", S_BID), ("boss_played_types", S_BTYPES),
+    ("boss_verdant_req", S_BVERD), ("hands_played_total", S_HPT),
+    ("hands_played_ante", S_HPA), ("best_hand_this_ante", S_BEST),
+    ("jokers_sold", S_JSOLD), ("step_count", S_STEPC))
+_BOOL_ROWS = (("boss_active", S_BACT), ("boss_first_hand", S_BFIRST), ("done", S_DONE))
 
 
 def state_from_packed(cards, ints, rng, device=None) -> FE.FullEnvState:
@@ -1370,11 +1387,13 @@ def _prepare(seed, n_envs, n_steps, actions, init_state, device):
         raise ValueError(f"want n_envs >= 1 and n_steps >= 0, got {n_envs}, {n_steps}")
     dev = run_device((actions, None if init_state is None else init_state.ante), device)
     if init_state is None:
-        init_state = default_reset(seed, n_envs, dev)
+        with P.span("rollout.reset"):
+            init_state = default_reset(seed, n_envs, dev)
     elif init_state.ante.shape != (n_envs,):
         raise ValueError(f"init_state holds {tuple(init_state.ante.shape)} envs, "
                          f"want ({n_envs},)")
-    packed = {k: v.to(dev).contiguous() for k, v in pack_full_state(init_state).items()}
+    with P.span("rollout.pack"):
+        packed = {k: v.to(dev).contiguous() for k, v in pack_full_state(init_state).items()}
     if actions is not None:
         actions = torch.as_tensor(actions).to(device=dev, dtype=_I32)
         if actions.dim() == 1:
@@ -1387,7 +1406,8 @@ def _prepare(seed, n_envs, n_steps, actions, init_state, device):
 
 
 def _result(packed, tot, epi):
-    return {"state": unpack_full_state(packed), "total_reward": tot, "episodes": epi}
+    with P.span("rollout.unpack"):
+        return {"state": unpack_full_state(packed), "total_reward": tot, "episodes": epi}
 
 
 def rollout_full_fused(seed, n_envs: int, n_steps: int, *, actions=None,
@@ -1404,13 +1424,15 @@ def rollout_full_fused(seed, n_envs: int, n_steps: int, *, actions=None,
     where there is none). With ``device="cpu"`` this is the plain version;
     on a card it is the CUDA kernel.
     """
-    packed, actions = _prepare(seed, n_envs, n_steps, actions, init_state, device)
-    dev = packed["ints"].device
-    if dev.type == "cpu":
-        return _result(*_reference_packed(packed, actions, seed, n_steps))
-    if dev.type != "cuda":
-        raise ValueError(f"rollout_full_fused: no kernel for device {dev}")
-    return _result(*_kernel_packed(packed, actions, seed, n_steps))
+    with P.span("rollout.call"):
+        packed, actions = _prepare(seed, n_envs, n_steps, actions, init_state, device)
+        dev = packed["ints"].device
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"rollout_full_fused: no kernel for device {dev}")
+        with P.span("rollout.launch"):
+            run = _reference_packed if dev.type == "cpu" else _kernel_packed
+            out = run(packed, actions, seed, n_steps)
+        return _result(*out)
 
 
 rollout_full_fused.launches = 0

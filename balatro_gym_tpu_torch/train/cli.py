@@ -25,7 +25,12 @@ default; the rate is counted as ``n_envs * rollout`` env-steps an update.
 whole state (for DQN the replay buffer too) to ``D/step_<i>`` after every
 N-th update ``i`` of the run (``utils/checkpoint.py``), and ``--resume
 D/step_<i>`` restores one after ``init_fn`` and trains on from it;
-``--checkpoint-every`` alone saves nothing. ``--wandb`` logs each metrics
+``--checkpoint-every`` alone saves nothing. ``--trace DIR`` profiles
+updates 2-4 with ``utils.profiling.trace``: ``DIR/trace.json``, the
+profiler's Chrome trace with the program's spans among its host events,
+and ``DIR/spans.json``, each span name's count, total and self host ms and
+host syncs, and the count of spans the tracer's full store dropped (rank 0
+only). ``--wandb`` logs each metrics
 line to a W&B run where ``wandb`` imports and starts, and trains without
 logging where it does not.
 
@@ -43,11 +48,15 @@ train separate learners in silence.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 from pathlib import Path
 
 import torch
+
+TRACED = (1, 3)     # --trace profiles updates 2-4 (0-based 1..3)
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Balatro trainer (PyTorch)")
@@ -66,6 +75,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", type=str, default="")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--wandb", action="store_true")
+    p.add_argument("--trace", type=str, default="",
+                   help="profile updates 2-4 into this directory ('' = no profile)")
     p.add_argument("--summary", type=str, default="training_summary.json",
                    help="where to write the run's summary ('' = nowhere)")
     p.add_argument("--fused-rollout", action="store_true",
@@ -152,10 +163,19 @@ def main(argv=None) -> dict:
         print(f"resumed from {args.resume} at update {ts.update_idx}", flush=True)
     on_card = (run_device((), args.device) if mesh is None else mesh.device).type == "cuda"
 
+    from balatro_gym_tpu_torch.utils import profiling
+
     t0 = time.perf_counter()
     metrics = {}
+    tracing = contextlib.ExitStack()
     for i in range(args.updates):
+        if args.trace and lead and i == TRACED[0]:
+            tracing.enter_context(profiling.trace(args.trace))
         ts, metrics = update_fn(ts)
+        if args.trace and lead and i == TRACED[1]:
+            if on_card:
+                torch.cuda.synchronize()
+            tracing.close()
         if args.log_every and (i + 1) % args.log_every == 0 and lead:
             m = {k: float(v) for k, v in metrics.items()}
             m["update"] = i + 1
@@ -169,6 +189,7 @@ def main(argv=None) -> dict:
             save_train_state(Path(args.checkpoint_dir) / f"step_{i + 1}", ts)
     if on_card:
         torch.cuda.synchronize()
+    tracing.close()
     elapsed = time.perf_counter() - t0
     total_steps = args.updates * cfg.n_envs * cfg.rollout_len
     summary = {

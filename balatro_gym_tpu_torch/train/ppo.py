@@ -64,6 +64,7 @@ from balatro_gym_tpu_torch.train.networks import (
     ActorCritic, StructuredActorCritic, load_flax_params)
 from balatro_gym_tpu_torch.train.normalize import (
     RunningStats, init_stats, normalize, normalize_reward, update_stats)
+from balatro_gym_tpu_torch.utils import profiling as P
 
 _F32 = torch.float32
 _TINY = float(np.finfo(np.float32).tiny)
@@ -272,10 +273,12 @@ def categorical(key, logits):
     uniform(bits[b * A + a], tiny, 1)`` of ``jax.random.bits(key, (B,
     A))``; ``key`` is two python ints."""
     n, a = logits.shape
-    idx = torch.arange(n * a, device=logits.device).view(n, a)
-    u = KR.uniform_f32(KR.random_bits32(*key, idx), _TINY, 1.0)
-    action = (logits + (-torch.log(-torch.log(u)))).argmax(1)
-    log_prob = torch.log_softmax(logits, 1).gather(1, action[:, None])[:, 0]
+    with P.span("sample.bits"):
+        bits = KR.random_bits32(*key, torch.arange(n * a, device=logits.device).view(n, a))
+    with P.span("sample.draw"):
+        u = KR.uniform_f32(bits, _TINY, 1.0)
+        action = (logits + (-torch.log(-torch.log(u)))).argmax(1)
+        log_prob = torch.log_softmax(logits, 1).gather(1, action[:, None])[:, 0]
     return action, log_prob
 
 
@@ -370,7 +373,14 @@ def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None, mesh=None):
     ``Transition`` (``traj``), its raw rewards (``raw``), the return carry
     of every step (``rets``) and the advantages (``adv``), and, on a card,
     ``events``: (stage, CUDA event) pairs recorded at the start and after
-    each stage (collection, stats, last value + GAE, shuffle + SGD).
+    each stage (collection, stats, last value + GAE, shuffle + SGD); the
+    tracer (``utils/profiling.py``) is on for such an update. The update's
+    spans: ``ppo.update`` around ``ppo.collect`` (a step's
+    ``ppo.collect.observe``, ``.policy``, ``.sample``, ``.env``,
+    ``.store``; :func:`categorical`'s ``sample.bits`` and ``sample.draw``),
+    ``ppo.stats``, ``ppo.gae`` and ``ppo.sgd`` (an epoch's
+    ``ppo.sgd.shuffle``, a minibatch's ``ppo.sgd.loss``, ``.backward``,
+    ``.adam``); the four stages also record the CUDA events.
     policy_fn(params, obs, mask) -> (logits, value).
 
     device: where to run (default: the card; it raises where there is none;
@@ -460,122 +470,139 @@ def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None, mesh=None):
         prev_a = torch.full((E,), -1, dtype=torch.int32, device=dev)
         alo = ahi = torch.zeros(E, dtype=torch.int64, device=dev)
         if fused:
-            obs, mask = observe_p(env_states)
+            with P.span("ppo.collect.observe"):
+                obs, mask = observe_p(env_states)
         for t, k in enumerate(keys):
             if not fused:
-                obs, mask = hooks.observe(env_states), hooks.action_mask(env_states)
-            if cfg.normalize_obs:
-                obs = normalize(obs_stats, obs)
-            logits, value = net(obs, mask)
-            if fused:
-                action, log_prob = sample_p(k, logits)
-                env_states, raw, done, next_obs, next_mask = step_p(env_states, action)
-            else:
-                action, log_prob = categorical(k, logits)
-                env_states, raw, done = hooks.step_autoreset(env_states, action)
-                raw = raw.to(_F32)
-            reward = shape_reward(raw, action, prev_a)
-            prev_a = torch.where(done, -1, action).to(torch.int32)
-            ret_carry = ret_carry * cfg.gamma * (1.0 - done.to(_F32)) + reward
-            train_reward = (normalize_reward(ret_stats, reward) if cfg.normalize_reward
-                            else reward)
-            train_reward, alo, ahi = cycle_shape(train_reward, raw, action, done, alo, ahi)
-            for name, v in (("obs", obs), ("mask", mask), ("action", action),
-                            ("log_prob", log_prob), ("value", value),
-                            ("reward", train_reward), ("raw", raw), ("done", done),
-                            ("rets", ret_carry)):
-                buf[name][t].copy_(v)
+                with P.span("ppo.collect.observe"):
+                    obs, mask = hooks.observe(env_states), hooks.action_mask(env_states)
+            with P.span("ppo.collect.policy"):
+                if cfg.normalize_obs:
+                    obs = normalize(obs_stats, obs)
+                logits, value = net(obs, mask)
+            with P.span("ppo.collect.sample"):
+                action, log_prob = sample_p(k, logits) if fused else categorical(k, logits)
+            with P.span("ppo.collect.env"):
+                if fused:
+                    env_states, raw, done, next_obs, next_mask = step_p(env_states, action)
+                else:
+                    env_states, raw, done = hooks.step_autoreset(env_states, action)
+                    raw = raw.to(_F32)
+            with P.span("ppo.collect.store"):
+                reward = shape_reward(raw, action, prev_a)
+                prev_a = torch.where(done, -1, action).to(torch.int32)
+                ret_carry = ret_carry * cfg.gamma * (1.0 - done.to(_F32)) + reward
+                train_reward = (normalize_reward(ret_stats, reward) if cfg.normalize_reward
+                                else reward)
+                train_reward, alo, ahi = cycle_shape(train_reward, raw, action, done, alo, ahi)
+                for name, v in (("obs", obs), ("mask", mask), ("action", action),
+                                ("log_prob", log_prob), ("value", value),
+                                ("reward", train_reward), ("raw", raw), ("done", done),
+                                ("rets", ret_carry)):
+                    buf[name][t].copy_(v)
             if fused:
                 obs, mask = next_obs, next_mask
         if not fused:
-            obs, mask = hooks.observe(env_states), hooks.action_mask(env_states)
+            with P.span("ppo.collect.observe"):
+                obs, mask = hooks.observe(env_states), hooks.action_mask(env_states)
         traj = Transition(*(buf[k] for k in Transition._fields))
         return env_states, traj, buf["raw"], buf["rets"], ret_carry, obs, mask
 
     def update_fn(ts: TrainState, record: dict | None = None):
-        events = record.setdefault("events", []) if record is not None else None
+        with P.recording(record is not None), P.span("ppo.update"):
+            return update(ts, record)
 
-        def mark(stage):
-            if events is not None and dev.type == "cuda":
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                events.append((stage, ev))
-
-        mark("start")
-        key, k_roll, k_perm, k_reset = KR.split_keys(ts.key, 4)
-        if mesh is not None:        # the carried key stays the same on every rank
-            k_roll, k_perm, k_reset = (KR.fold_in(*k, mesh.rank)
-                                       for k in (k_roll, k_perm, k_reset))
-        env_states, ret_carry0 = ts.env_states, ts.ret_carry
-        E = ret_carry0.shape[0]
-        net = ts.params
+    def update(ts: TrainState, record: dict | None):
+        cuda = dev.type == "cuda"
         with torch.no_grad():
-            if cfg.reset_envs_every:
-                lanes = ((ts.update_idx + torch.arange(E, device=dev))
-                         % cfg.reset_envs_every) == 0
-                env_states = _where_lanes(lanes, reset_envs(_keys(k_reset, E, dev)), env_states)
-                ret_carry0 = torch.where(lanes, 0.0, ret_carry0)
-            env_states, traj, raw, rets, ret_carry, last_obs, last_mask = rollout(
-                net, env_states, k_roll, ts.obs_stats, ts.ret_stats, ret_carry0)
-            mark("collection")
-            obs_stats = (update_stats(ts.obs_stats, traj.obs.reshape(-1, hooks.obs_dim).to(_F32),
-                                      mesh) if cfg.normalize_obs else ts.obs_stats)
-            ret_stats = (update_stats(ts.ret_stats, rets.reshape(-1), mesh)
-                         if cfg.normalize_reward else ts.ret_stats)
-            mark("stats")
-            if cfg.normalize_obs:
-                last_obs = normalize(ts.obs_stats, last_obs)
-            _, last_value = net(last_obs, last_mask)
-            adv, ret = gae(traj, last_value, cfg.gamma, cfg.gae_lambda)
-            mark("last value + GAE")
-        if record is not None:
-            record.update(traj=traj, raw=raw, rets=rets, adv=adv)
+            with P.span("ppo.collect", events=cuda) as collect:
+                key, k_roll, k_perm, k_reset = KR.split_keys(ts.key, 4)
+                if mesh is not None:        # the carried key stays the same on every rank
+                    k_roll, k_perm, k_reset = (KR.fold_in(*k, mesh.rank)
+                                               for k in (k_roll, k_perm, k_reset))
+                env_states, ret_carry0 = ts.env_states, ts.ret_carry
+                E = ret_carry0.shape[0]
+                net = ts.params
+                if cfg.reset_envs_every:
+                    lanes = ((ts.update_idx + torch.arange(E, device=dev))
+                             % cfg.reset_envs_every) == 0
+                    env_states = _where_lanes(lanes, reset_envs(_keys(k_reset, E, dev)),
+                                              env_states)
+                    ret_carry0 = torch.where(lanes, 0.0, ret_carry0)
+                env_states, traj, raw, rets, ret_carry, last_obs, last_mask = rollout(
+                    net, env_states, k_roll, ts.obs_stats, ts.ret_stats, ret_carry0)
+            with P.span("ppo.stats", events=cuda) as stats:
+                obs_stats = (update_stats(ts.obs_stats,
+                                          traj.obs.reshape(-1, hooks.obs_dim).to(_F32), mesh)
+                             if cfg.normalize_obs else ts.obs_stats)
+                ret_stats = (update_stats(ts.ret_stats, rets.reshape(-1), mesh)
+                             if cfg.normalize_reward else ts.ret_stats)
+            with P.span("ppo.gae", events=cuda) as last:
+                if cfg.normalize_obs:
+                    last_obs = normalize(ts.obs_stats, last_obs)
+                _, last_value = net(last_obs, last_mask)
+                adv, ret = gae(traj, last_value, cfg.gamma, cfg.gae_lambda)
 
-        T = traj.action.shape[0]
-        if cfg.ent_coef_final >= 0.0 and cfg.total_updates > 0:
-            frac = np.clip(np.float32(ts.update_idx) / np.float32(cfg.total_updates),
-                           np.float32(0), np.float32(1))
-            ent_coef = float(np.float32(cfg.ent_coef)
-                             + np.float32(cfg.ent_coef_final - cfg.ent_coef) * frac)
-        else:
-            ent_coef = float(np.float32(cfg.ent_coef))
-        data = (traj, adv, ret)
-        params, opt, stop = param_list(net), ts.opt_state, False
-        rows = []
-        for k in KR.split_keys(k_perm, cfg.epochs):
-            kt = [torch.full((), w, dtype=torch.int64, device=dev) for w in k]
-            if cfg.env_shuffle:
-                perm = KR.permutation(*kt, E).view(cfg.minibatches, -1)
-                pick = [lambda x, idx=idx: x[:, idx].reshape((-1,) + x.shape[2:])
-                        for idx in perm]
+        with P.span("ppo.sgd", events=cuda) as sgd:
+            if record is not None:
+                record.update(traj=traj, raw=raw, rets=rets, adv=adv)
+            T = traj.action.shape[0]
+            if cfg.ent_coef_final >= 0.0 and cfg.total_updates > 0:
+                frac = np.clip(np.float32(ts.update_idx) / np.float32(cfg.total_updates),
+                               np.float32(0), np.float32(1))
+                ent_coef = float(np.float32(cfg.ent_coef)
+                                 + np.float32(cfg.ent_coef_final - cfg.ent_coef) * frac)
             else:
-                perm = KR.permutation(*kt, T * E).view(cfg.minibatches, -1)
-                pick = [lambda x, idx=idx: x.reshape((T * E,) + x.shape[2:])[idx]
-                        for idx in perm]
-            for take in pick:
-                t, a, r = data
-                batch = (Transition(*(take(x) for x in t)), take(a), take(r))
-                total, aux = ppo_loss(net, batch, ent_coef, cfg)
-                if mesh is None:
-                    if cfg.kl_target > 0.0:
-                        stop = stop or bool(aux[-1] > cfg.kl_target)
+                ent_coef = float(np.float32(cfg.ent_coef))
+            data = (traj, adv, ret)
+            params, opt, stop = param_list(net), ts.opt_state, False
+            rows = []
+            for k in KR.split_keys(k_perm, cfg.epochs):
+                with P.span("ppo.sgd.shuffle"):
+                    kt = [torch.full((), w, dtype=torch.int64, device=dev) for w in k]
+                    if cfg.env_shuffle:
+                        perm = KR.permutation(*kt, E).view(cfg.minibatches, -1)
+                        pick = [lambda x, idx=idx: x[:, idx].reshape((-1,) + x.shape[2:])
+                                for idx in perm]
+                    else:
+                        perm = KR.permutation(*kt, T * E).view(cfg.minibatches, -1)
+                        pick = [lambda x, idx=idx: x.reshape((T * E,) + x.shape[2:])[idx]
+                                for idx in perm]
+                for take in pick:
+                    with P.span("ppo.sgd.loss"):
+                        t, a, r = data
+                        batch = (Transition(*(take(x) for x in t)), take(a), take(r))
+                        total, aux = ppo_loss(net, batch, ent_coef, cfg)
+                    if mesh is None:
+                        if cfg.kl_target > 0.0:
+                            stop = stop or bool(aux[-1] > cfg.kl_target)
+                        if not stop:
+                            with P.span("ppo.sgd.backward"):
+                                grads = torch.autograd.grad(total, params)
+                    elif not stop:      # the gate reads the KL averaged over the ranks
+                        with P.span("ppo.sgd.backward"):
+                            grads, kl = mean_grads(mesh, torch.autograd.grad(total, params),
+                                                   aux[-1])
+                        if cfg.kl_target > 0.0:
+                            stop = bool(kl > cfg.kl_target)
                     if not stop:
-                        grads = torch.autograd.grad(total, params)
-                elif not stop:      # the gate reads the KL averaged over the ranks
-                    grads, kl = mean_grads(mesh, torch.autograd.grad(total, params), aux[-1])
-                    if cfg.kl_target > 0.0:
-                        stop = bool(kl > cfg.kl_target)
-                if not stop:
-                    opt = adam_update(params, grads, opt, lr_at(opt.count), cfg.max_grad_norm)
-                rows.append(torch.stack([total.detach(), *aux, flags[stop]]))
-        loss, pg, vf, ent, approx_kl, kl_skipped = torch.stack(rows).mean(0)
-        mean_reward, episodes = raw.mean(), traj.done.sum()
-        if mesh is not None:
-            red = mesh.sum_(torch.stack([loss, pg, vf, ent, mean_reward, approx_kl, kl_skipped,
-                                         episodes.to(_F32)]))
-            loss, pg, vf, ent, mean_reward, approx_kl, kl_skipped = red[:7] / mesh.size
-            episodes = red[7].to(episodes.dtype)
-        mark("shuffle + SGD")
+                        with P.span("ppo.sgd.adam"):
+                            opt = adam_update(params, grads, opt, lr_at(opt.count),
+                                              cfg.max_grad_norm)
+                    rows.append(torch.stack([total.detach(), *aux, flags[stop]]))
+            loss, pg, vf, ent, approx_kl, kl_skipped = torch.stack(rows).mean(0)
+            mean_reward, episodes = raw.mean(), traj.done.sum()
+            if mesh is not None:
+                red = mesh.sum_(torch.stack([loss, pg, vf, ent, mean_reward, approx_kl,
+                                             kl_skipped, episodes.to(_F32)]))
+                loss, pg, vf, ent, mean_reward, approx_kl, kl_skipped = red[:7] / mesh.size
+                episodes = red[7].to(episodes.dtype)
+        if record is not None:
+            events = record.setdefault("events", [])
+            if cuda:        # the stages' ends, as one CUDA event each
+                events += [("start", collect.events[0]), ("collection", collect.events[1]),
+                           ("stats", stats.events[1]), ("last value + GAE", last.events[1]),
+                           ("shuffle + SGD", sgd.events[1])]
         out = TrainState(params=net, opt_state=opt, env_states=env_states, key=key,
                          update_idx=ts.update_idx + 1, obs_stats=obs_stats,
                          ret_stats=ret_stats, ret_carry=ret_carry)
