@@ -13,9 +13,11 @@ step), and the step also emits the next step's policy inputs.
   post-step state. ``observe_fused`` launches K3b: the observation and mask
   of a state, without stepping (a collection's step 0). ``sample_fused``
   launches the sampler: ``jax.random.categorical`` with the log-probability
-  of the drawn action. ``env_step_fused`` launches ``env_step_kernel``:
-  K3a's step without its autoreset, observation or mask, the engine's own
-  ``step`` (``engine.full_env.step``), which the reference leaves to XLA.
+  of the drawn action, its key given as two python ints or as two words on
+  the card (which a CUDA graph's replay reads anew). ``env_step_fused``
+  launches ``env_step_kernel``: K3a's step without its autoreset,
+  observation or mask, the engine's own ``step``
+  (``engine.full_env.step``), which the reference leaves to XLA.
   ``env_reset_fused`` launches ``env_reset_kernel``: the engine's
   ``reset`` (a permutation shuffle, not the kernels' sort) of the masked
   envs, in place on packed rows. Each counts its launches in
@@ -151,8 +153,10 @@ def env_reset_rows_reference(packed, mask, keys=None):
 def sample(step_key, logits):
     """``jax.random.categorical(step_key, logits.T, axis=0)`` and the
     log-softmax at the drawn action: (action ``[B]`` int32, log_prob
-    ``[B]`` float32). ``step_key``: the key's two 32-bit words (python ints);
-    ``logits``: ``[B, 60]`` float32 (illegal actions at -1e9)."""
+    ``[B]`` float32). ``step_key``: the key's two 32-bit words, as python
+    ints or as a ``[2]`` int32 tensor of their bit patterns on the logits'
+    device (a row of :func:`step_key_rows`); ``logits``: ``[B, 60]`` float32
+    (illegal actions at -1e9)."""
     n, a = logits.shape
     idx = torch.arange(a * n, device=logits.device).view(a, n)
     u = KR.uniform_f32(KR.random_bits32(*step_key, idx), _TINY, 1.0)
@@ -166,6 +170,16 @@ def step_keys(seed, n_steps: int):
     ints each: computed on the host, so passing them to a kernel makes no
     copy from the card."""
     return KR.split_keys([int(w) for w in KR.seed_key(seed, device="cpu")], n_steps)
+
+
+def step_key_rows(key, n_steps: int):
+    """The ``n_steps`` children of ``split(key, n_steps)``, the words of
+    :func:`step_keys`, as the rows of an ``[n_steps, 2]`` int32 tensor of
+    their bit patterns on the device of ``key``, a ``[2]`` integer tensor of
+    the key's words. Computed there, without a copy to or from the host,
+    so a CUDA graph can capture it."""
+    child = KR.split_child(*key, torch.arange(n_steps, device=key.device))
+    return FF._w2i(torch.stack(child, -1))
 
 
 # ---------------------------------------------------------------------------
@@ -183,12 +197,13 @@ def _kernel_lib():
     lib.env_step_launch.argtypes = [_P] * 10 + [_INT, _P]
     lib.env_reset_launch.argtypes = [_P] * 5 + [_INT, _P]
     lib.policy_sample_launch.argtypes = [_P, _I64, _I64, _INT, _UINT, _UINT, _P, _P, _P]
+    lib.policy_sample_key_launch.argtypes = [_P, _I64, _I64, _INT, _P, _P, _P, _P]
     infos = (lib.policy_step_info, lib.policy_observe_info, lib.policy_sample_info,
              lib.env_step_info, lib.env_reset_info)
     for fn in infos:
         fn.argtypes = [_P]
     for fn in (lib.policy_observe_launch, lib.policy_step_launch, lib.policy_sample_launch,
-               lib.env_step_launch, lib.env_reset_launch, *infos):
+               lib.policy_sample_key_launch, lib.env_step_launch, lib.env_reset_launch, *infos):
         fn.restype = ctypes.c_int
     return lib
 
@@ -363,7 +378,8 @@ env_reset_fused.launches = 0
 def sample_fused(step_key, logits, *, device=None):
     """:func:`sample` by the sampler kernel on a card, the plain version
     with ``device="cpu"``. The kernel reads ``logits`` in any layout (the
-    policy's matmul may leave them column-major)."""
+    policy's matmul may leave them column-major). A tensor ``step_key`` (a
+    ``[2]`` int32 tensor on the card) is read by the kernel there."""
     dev = run_device((logits,), device)
     logits = logits.to(dev)
     if dev.type == "cpu":
@@ -377,9 +393,15 @@ def sample_fused(step_key, logits, *, device=None):
         raise ValueError(f"sample_fused: {n} envs overflow the 32-bit draw counter")
     action = torch.empty(n, dtype=_I32, device=dev)
     log_prob = torch.empty(n, dtype=_F32, device=dev)
-    k1, k2 = step_key
-    _launch(_kernel_lib().policy_sample_launch, "policy_sample", dev, logits.data_ptr(),
-            *logits.stride(), n, k1, k2, action.data_ptr(), log_prob.data_ptr())
+    if torch.is_tensor(step_key):
+        check_arg(step_key, "step_key", _I32, (2,), dev)
+        _launch(_kernel_lib().policy_sample_key_launch, "policy_sample", dev,
+                logits.data_ptr(), *logits.stride(), n, step_key.data_ptr(),
+                action.data_ptr(), log_prob.data_ptr())
+    else:
+        k1, k2 = step_key
+        _launch(_kernel_lib().policy_sample_launch, "policy_sample", dev, logits.data_ptr(),
+                *logits.stride(), n, k1, k2, action.data_ptr(), log_prob.data_ptr())
     sample_fused.launches += 1
     return action, log_prob
 

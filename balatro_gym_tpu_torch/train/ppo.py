@@ -32,9 +32,17 @@ between updates. Otherwise the hooks' ``observe``, ``action_mask`` and
 step is ``env_step_kernel`` and whose observation and mask are K3b on a
 card.
 
-Neither rollout synchronises with the card inside its step loop: step keys
-are split on the host before it, and every per-step value stays on the
-device.
+Neither rollout synchronises with the card inside its step loop: the
+generic rollout's step keys are split on the host before it, the fused
+rollout's on the device from the key's two words (copied there from pinned
+memory), and every per-step value stays on the device.
+
+On a card, the fused rollout over the kernels' own wrappers (``fused_ops``
+None) is one CUDA graph (:class:`CollectionGraph`), captured on the
+learner's first update and replayed once an update, so the host enqueues a
+collection in one call instead of ~40 torch calls a step. Its kernels and
+their order are the eager loop's, which runs on the CPU and over other
+``fused_ops``; the generic rollout stays eager.
 
 Given a data-parallel ``mesh`` (``parallel/mesh.py``), an update is the
 reference's ``axis_name`` path: each rank steps its own shard of the envs
@@ -50,6 +58,7 @@ collection launches its kernels or raises.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 from typing import Any, Callable, NamedTuple
@@ -351,6 +360,76 @@ def _keys(key, n, dev, first: int = 0):
     return torch.stack(KR.split_child(*key, torch.arange(first, first + n, device=dev)), -1)
 
 
+def _key_words(key, dev):
+    """A key's two 32-bit words as a ``[2]`` int64 tensor on ``dev``: to a
+    card from pinned memory, without a host sync."""
+    words = torch.tensor([int(w) for w in key], dtype=torch.int64)
+    return words.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else words
+
+
+class CollectionGraph:
+    """A fused rollout on a card as one CUDA graph, replayed once a call.
+
+    ``body(net, env_states, key, obs_stats, ret_stats, ret_carry)`` is the
+    learner's rollout. The first call runs ``body`` once on a side stream (the
+    warm-up: the kernels' loads, the float tables, cuBLAS's workspace; its
+    outputs are dropped), then captures it on static inputs: a copy of the
+    policy, the packed env rows, the key's words, both statistics and the
+    return carry. Every call copies its own inputs into them (so a restored
+    or copied ``TrainState`` replays as well as the last one), replays the
+    graph on the current stream and returns ``body``'s outputs: the env
+    rows and the return carry cloned, the trajectory, raw rewards, return
+    carries and last observation and mask as the graph's own buffers,
+    which the next replay overwrites. A failed capture raises.
+
+    The kernels' wrappers count their launches (``.launches``) in the
+    warm-up and in the capture, and not in a replay, which launches no
+    wrapper; ``replays`` counts the replays. Spans: ``ppo.collect.capture``
+    around the first call's warm-up and capture (the rollout's per-step
+    spans are kept then, twice), ``ppo.collect.replay`` around each
+    replay."""
+
+    def __init__(self, body):
+        self.body = body
+        self.graph, self.replays = None, 0
+
+    @staticmethod
+    def _flat(net, env_states, key, obs_stats, ret_stats, ret_carry) -> list:
+        return [*param_list(net), *(env_states[k] for k in sorted(env_states)), key,
+                *(x for s in (obs_stats, ret_stats) for x in (s.mean, s.var, s.count)),
+                ret_carry]
+
+    def _capture(self, net, env_states, key, obs_stats, ret_stats, ret_carry):
+        self.net = copy.deepcopy(net)
+        self.args = ({k: v.clone() for k, v in env_states.items()}, key.clone(),
+                     *(RunningStats(s.mean.clone(), s.var.clone(), s.count.clone())
+                       for s in (obs_stats, ret_stats)), ret_carry.clone())
+        self.static = self._flat(self.net, *self.args)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self.body(self.net, *self.args)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: a data-parallel rank's communicator threads keep querying the card
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self.out = self.body(self.net, *self.args)
+        self.graph = graph
+
+    def __call__(self, net, env_states, key, obs_stats, ret_stats, ret_carry):
+        if self.graph is None:
+            with P.span("ppo.collect.capture"):
+                self._capture(net, env_states, key, obs_stats, ret_stats, ret_carry)
+        with P.span("ppo.collect.replay"):
+            torch._foreach_copy_(self.static, self._flat(net, env_states, key, obs_stats,
+                                                         ret_stats, ret_carry))
+            self.graph.replay()
+            self.replays += 1
+            env, traj, raw, rets, carry, obs, mask = self.out
+            return ({k: v.clone() for k, v in env.items()}, traj, raw, rets, carry.clone(),
+                    obs, mask)
+
+
 def _where_lanes(lanes, a, b):
     """Per-env select of two batched env states: packed rows (the env axis
     last) or what ``full_env.where_envs`` takes."""
@@ -371,16 +450,22 @@ def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None, mesh=None):
     metrics dict has the reference's keys, as 0-dim tensors on the device.
     Given a dict as ``record``, it is filled with the rollout's
     ``Transition`` (``traj``), its raw rewards (``raw``), the return carry
-    of every step (``rets``) and the advantages (``adv``), and, on a card,
+    of every step (``rets``) and the advantages (``adv``) (copies of the
+    graph's buffers where the collection is one), and, on a card,
     ``events``: (stage, CUDA event) pairs recorded at the start and after
     each stage (collection, stats, last value + GAE, shuffle + SGD); the
     tracer (``utils/profiling.py``) is on for such an update. The update's
     spans: ``ppo.update`` around ``ppo.collect`` (a step's
     ``ppo.collect.observe``, ``.policy``, ``.sample``, ``.env``,
-    ``.store``; :func:`categorical`'s ``sample.bits`` and ``sample.draw``),
+    ``.store``; :func:`categorical`'s ``sample.bits`` and ``sample.draw``;
+    where the collection is a CUDA graph, ``ppo.collect.capture`` on the
+    first update, which keeps the step spans, and ``ppo.collect.replay``),
     ``ppo.stats``, ``ppo.gae`` and ``ppo.sgd`` (an epoch's
     ``ppo.sgd.shuffle``, a minibatch's ``ppo.sgd.loss``, ``.backward``,
     ``.adam``); the four stages also record the CUDA events.
+    ``update_fn.collection`` is the rollout it calls: a
+    :class:`CollectionGraph` (whose ``replays`` counts its replays) where
+    the collection is a CUDA graph.
     policy_fn(params, obs, mask) -> (logits, value).
 
     device: where to run (default: the card; it raises where there is none;
@@ -406,6 +491,8 @@ def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None, mesh=None):
         lr_at = lambda count: cfg.lr                               # noqa: E731
     store_dt = torch.bfloat16 if (fused and cfg.bf16_compute) else _F32
     flags = (torch.zeros((), device=dev), torch.ones((), device=dev))    # kl_skipped
+    # the fused collection is a CUDA graph on a card over the kernels' own wrappers
+    graphed = fused and dev.type == "cuda" and hooks.fused_ops is None
     if fused:
         from balatro_gym_tpu_torch.ops import fused_full_rollout as FF
         from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
@@ -455,11 +542,14 @@ def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None, mesh=None):
 
     def rollout(net, env_states, key, obs_stats, ret_stats, ret_carry):
         """Returns (env_states, traj, raw rewards, rets, ret_carry, last
-        observation (raw), last mask)."""
+        observation (raw), last mask). ``key``: the two words of the
+        rollout's key, python ints, or on the fused path a ``[2]`` tensor on
+        the device, whose step keys are split there."""
         T, E = cfg.rollout_len, ret_carry.shape[0]
-        keys = KR.split_keys(key, T)
-        if not fused:       # a step's key splits into (k_act, k_step)
-            keys = [KR.split_keys(k, 1)[0] for k in keys]
+        if fused:
+            keys = FP.step_key_rows(key, T)
+        else:               # a step's key splits into (k_act, k_step)
+            keys = [KR.split_keys(k, 1)[0] for k in KR.split_keys(key, T)]
         buf = {
             "obs": torch.empty(T, E, hooks.obs_dim, dtype=store_dt, device=dev),
             "mask": torch.empty(T, E, hooks.n_actions, dtype=torch.bool, device=dev),
@@ -508,6 +598,8 @@ def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None, mesh=None):
         traj = Transition(*(buf[k] for k in Transition._fields))
         return env_states, traj, buf["raw"], buf["rets"], ret_carry, obs, mask
 
+    collection = CollectionGraph(rollout) if graphed else rollout
+
     def update_fn(ts: TrainState, record: dict | None = None):
         with P.recording(record is not None), P.span("ppo.update"):
             return update(ts, record)
@@ -529,7 +621,9 @@ def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None, mesh=None):
                     env_states = _where_lanes(lanes, reset_envs(_keys(k_reset, E, dev)),
                                               env_states)
                     ret_carry0 = torch.where(lanes, 0.0, ret_carry0)
-                env_states, traj, raw, rets, ret_carry, last_obs, last_mask = rollout(
+                if fused:
+                    k_roll = _key_words(k_roll, dev)
+                env_states, traj, raw, rets, ret_carry, last_obs, last_mask = collection(
                     net, env_states, k_roll, ts.obs_stats, ts.ret_stats, ret_carry0)
             with P.span("ppo.stats", events=cuda) as stats:
                 obs_stats = (update_stats(ts.obs_stats,
@@ -544,8 +638,10 @@ def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None, mesh=None):
                 adv, ret = gae(traj, last_value, cfg.gamma, cfg.gae_lambda)
 
         with P.span("ppo.sgd", events=cuda) as sgd:
-            if record is not None:
-                record.update(traj=traj, raw=raw, rets=rets, adv=adv)
+            if record is not None:      # the graph's buffers change at its next replay
+                own = (lambda x: x.clone()) if graphed else (lambda x: x)  # noqa: E731
+                record.update(traj=Transition(*map(own, traj)), raw=own(raw), rets=own(rets),
+                              adv=adv)
             T = traj.action.shape[0]
             if cfg.ent_coef_final >= 0.0 and cfg.total_updates > 0:
                 frac = np.clip(np.float32(ts.update_idx) / np.float32(cfg.total_updates),
@@ -613,6 +709,7 @@ def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None, mesh=None):
     def policy_fn(params, obs, mask):
         return params(obs, mask)
 
+    update_fn.collection = collection
     return init_fn, update_fn, policy_fn
 
 

@@ -110,10 +110,14 @@ non-zero:
 15. trainer main path: ``train.ppo.make_ppo`` on the flagship env with the
     ``fast_decay`` recipe of scripts/train_headline_r04.py (8192 envs x 128
     steps, bf16, env_shuffle, 1 epoch, 4 minibatches, lr and entropy decay
-    over 5 updates, ``ActorCritic(256, 256)`` from ``init_fn``), 5 updates
-    with the collection's launch counters reset before and read after (K3b
-    1, K3a 128, sampler 128 an update); every recorded action legal under
-    its mask, metrics finite, parameters moved, episodes > 0;
+    over 5 updates, ``ActorCritic(256, 256)`` from ``init_fn``), 5 updates,
+    the collection one CUDA graph replayed by each (``replays`` 5): the
+    wrappers' launch counters, reset before, read after the first update
+    (its warm-up and capture: K3b 2, K3a and the sampler 256), unchanged by
+    the replays, and the kernels that ran in the other 4 counted by name in
+    a profile of the card (K3b 1, K3a 128, sampler 128 an update); every
+    recorded action legal under its mask, metrics finite, parameters moved,
+    episodes > 0;
 16. trainer parity: at 1024 envs x 8 steps, 2 epochs, 2 minibatches, from a
     mid-game state, the fused update against the same update over the
     kernels' plain versions on the card (bf16 with env_shuffle, and float32
@@ -148,8 +152,8 @@ non-zero:
     battery's done envs and in its fresh mode over 8192 and 131072 envs,
     each held against its plain version and timed, with the ``autoreset``
     and ``reset`` calls; the launch shapes and ptxas lines of both kernels,
-    and K2's and K3a's ptxas lines beside those recorded before the step
-    kernel joined their step (``RECORDED_PTXAS``; printed, not held: a
+    and K2's, K3a's, ``env_step_kernel``'s and the sampler's ptxas lines
+    beside those recorded (``RECORDED_PTXAS``; printed, not held: a
     redesign changes them);
 19. generic PPO: ``make_ppo(full_env_hooks())`` with the ``fast_decay``
     recipe but ``fused_rollout=False``, 8192 x 128, ``ActorCritic(256,
@@ -213,17 +217,21 @@ non-zero:
     gloo (NCCL refuses two ranks on one GPU), children of this script
     started by ``mesh.launch`` with a timeout, loading phase 2's build:
     ``make_distributed_ppo`` with the ``fast_decay`` recipe at 8192 x 128
-    global (4096 envs a rank), 3 updates, the launch counters reset before
-    and read after on each rank (K3a and the sampler 128, K3b 1 an
-    update), the ranks' parameters equal bit for bit after every update,
-    every action legal, metrics finite, each rank's update time by CUDA
-    events and its host time in ``all_reduce``; then phase 16's parity
+    global (4096 envs a rank), 3 updates, each a replay of the collection's
+    graph, on each rank the launch counters read as in phase 15 (the
+    capture's in the first update; the last 2, under the profiler, K3a
+    and the sampler 128, K3b 1 an update by kernel name), the ranks'
+    parameters equal bit for bit after every update, every action legal,
+    metrics finite, each rank's update time by CUDA events (the last 2
+    under the profiler) and its host time in ``all_reduce``; then phase 16's parity
     config over the 2 ranks, the fused update against the plain versions'
     on each rank's shard (trajectories and packed state bit for bit, the
     sampler's log-probs within 1e-6, parameters within 1e-6); (b) one rank
     over NCCL (in a child): the same recipe's update time beside the
     undistributed update's, the two in turns in that process, and phase
-    17's, and its all-reduces an update; (c) over the 2
+    17's, and its all-reduces an update (each update a replay of its
+    learner's graph: the launch counters unchanged after the warm-up's
+    capture, ``replays`` 6 each); (c) over the 2
     ranks, ``rollout_fused_sharded`` at 131072 x 256 sampled with the bench
     jokers (each rank == ``rollout_fused(seed + rank * n_local_tiles,
     65536, ...)`` bit for bit, K4 once a rank), fed at 4096 x 32 with
@@ -344,6 +352,13 @@ RECORDED_PTXAS = {
     "policy_step_kernel": [
         "160 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "Used 94 registers, used 0 barriers, 160 bytes cumulative stack size"],
+    "env_step_kernel": [
+        "160 bytes stack frame, 28 bytes spill stores, 48 bytes spill loads",
+        "Used 72 registers, used 1 barriers, 160 bytes cumulative stack size"],
+    # the step's key read on the card where given (30 registers before)
+    "policy_sample_kernel": [
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "Used 32 registers, used 1 barriers, 21984 bytes smem"],
 }
 
 # The least time the card could take: NVIDIA's data-sheet HBM rate,
@@ -916,6 +931,17 @@ def card_profile(fn):
     return 1.0 - busy / span, by_name
 
 
+POLICY_KERNELS = (("K3a", "policy_step_kernel"), ("K3b", "policy_observe_kernel"),
+                  ("sampler", "policy_sample_kernel"))
+
+
+def kernel_launches(by_name):
+    """Launches of K3a, K3b and the sampler in ``card_profile``'s card time
+    by kernel name: the kernels that ran, a CUDA graph's included."""
+    return {k: sum(len(ds) for n, ds in by_name.items() if kernel in n)
+            for k, kernel in POLICY_KERNELS}
+
+
 def hand_cards(packed):
     """Hand positions of a packed state that hold a deck card, summed over
     its envs: K3b reads the rank and suit of each."""
@@ -1142,22 +1168,34 @@ def legal_count(traj):
 def phase_train_main():
     cfg = TP.PPOConfig(**TRAIN)
     init_fn, update_fn, _ = TP.make_ppo(TP.full_env_hooks(), cfg, device=DEV)
-    ts = init_fn([int(w) for w in KR.seed_key(0, device="cpu")])
-    p0 = [p.detach().clone() for p in TP.param_list(ts.params)]
+    state = {"ts": init_fn([int(w) for w in KR.seed_key(0, device="cpu")])}
+    p0 = [p.detach().clone() for p in TP.param_list(state["ts"].params)]
     illegal = torch.zeros((), dtype=torch.int64, device=DEV)
     episodes = torch.zeros((), dtype=torch.int64, device=DEV)
     history = []
+
+    def run(n):
+        nonlocal illegal, episodes
+        for _ in range(n):
+            rec = {}
+            state["ts"], m = update_fn(state["ts"], record=rec)
+            illegal += legal_count(rec["traj"])
+            episodes += rec["traj"].done.sum()
+            history.append(m)
+
     FP.observe_fused.launches = FP.step_fused.launches = FP.sample_fused.launches = 0
-    for _ in range(TRAIN_UPDATES):
-        rec = {}
-        ts, m = update_fn(ts, record=rec)
-        illegal += legal_count(rec["traj"])
-        episodes += rec["traj"].done.sum()
-        history.append(m)
-    torch.cuda.synchronize()
-    launches = policy_counts()
+    run(1)                                 # captures the collection's graph, then replays it
+    captured = policy_counts()
+    _, by_name = card_profile(lambda: run(TRAIN_UPDATES - 1))
+    launches = kernel_launches(by_name)
+    ts = state["ts"]
     T = cfg.rollout_len
-    want = {"K3b": TRAIN_UPDATES, "K3a": TRAIN_UPDATES * T, "sampler": TRAIN_UPDATES * T}
+    once = {"K3b": 1, "K3a": T, "sampler": T}
+    # the wrappers count the capture's warm-up and capture; a replay launches no wrapper
+    assert captured == {k: 2 * n for k, n in once.items()}, captured
+    assert policy_counts() == captured, (policy_counts(), captured)
+    assert update_fn.collection.replays == TRAIN_UPDATES, update_fn.collection.replays
+    want = {k: (TRAIN_UPDATES - 1) * n for k, n in once.items()}
     assert launches == want, (launches, want)
     assert int(illegal) == 0, f"{int(illegal)} sampled actions were illegal"
     hist = [{k: float(v) for k, v in m.items()} for m in history]
@@ -1166,7 +1204,9 @@ def phase_train_main():
     assert moved > 0, "the parameters did not move"
     assert int(episodes) > 0, "no episode ended"
     log("15 trainer main path", f"ok: make_ppo(full_env_hooks(), fast_decay) "
-        f"{cfg.n_envs}x{T}, ActorCritic(256, 256), {TRAIN_UPDATES} updates, launches={launches}; "
+        f"{cfg.n_envs}x{T}, ActorCritic(256, 256), {TRAIN_UPDATES} updates, {TRAIN_UPDATES} "
+        f"collection graph replays; the wrappers' launches in the capture {captured}, "
+        f"launches in the last {TRAIN_UPDATES - 1} updates (profiler) {launches}; "
         f"every action legal; {int(episodes)} episodes; params moved (max {moved:.3g}); "
         f"metrics by update: {[{k: round(v, 5) for k, v in m.items()} for m in hist]}")
     return ts, update_fn, launches, hist
@@ -1245,8 +1285,7 @@ def phase_train_timing(smi, ts, update_fn):
     idle = None if card_ms is None else max(0.0, 1.0 - card_ms / upd_ms)
     top = sorted(((sum(ds), len(ds), n) for n, ds in by_name.items()), reverse=True)[:8]
     in_trainer = {}                      # the policy kernels' card time a launch in the update
-    for name, kernel in (("K3a", "policy_step_kernel"), ("K3b", "policy_observe_kernel"),
-                         ("sampler", "policy_sample_kernel")):
+    for name, kernel in POLICY_KERNELS:
         ds = [d for n, dl in by_name.items() if kernel in n for d in dl]
         in_trainer[name] = {"launches": len(ds), "us": statistics.median(ds) * 1e3 if ds else None}
     rate = steps / (upd_ms / 1e3)
@@ -1384,7 +1423,9 @@ def phase_env_step(smi):
     b = bound(n * (2 * PACKED_BYTES + 9), 0)
     ptxas = {k: ptxas_lines(src, k) for k, src in (
         ("fused_full_rollout_kernel", "fused_full_rollout.cu"),
-        ("policy_step_kernel", "fused_policy_rollout.cu"))}
+        ("policy_step_kernel", "fused_policy_rollout.cu"),
+        ("env_step_kernel", "fused_policy_rollout.cu"),
+        ("policy_sample_kernel", "fused_policy_rollout.cu"))}
     env_ptxas = {k: ptxas_lines("fused_policy_rollout.cu", k) for k in (
         "env_step_kernel", "env_reset_kernel")}
     same = {k: "equal" if lines == RECORDED_PTXAS[k] else "CHANGED"
@@ -1407,7 +1448,9 @@ def phase_env_step(smi):
         f"{HBM_BYTES_PER_S:.3g} B/s); launch shape {shape}; ptxas {env_ptxas}; "
         + "; ".join(f"{name} {ptxas[k]} ({same[k]} to the recorded {RECORDED_PTXAS[k]})"
                     for name, k in (("K2", "fused_full_rollout_kernel"),
-                                    ("K3a", "policy_step_kernel")))
+                                    ("K3a", "policy_step_kernel"),
+                                    ("env_step_kernel", "env_step_kernel"),
+                                    ("sampler", "policy_sample_kernel")))
         + f"; env_step_kernel by branch class: {class_table_text(classes)}; "
         f"env_reset_kernel: {reset_text(reset)} [{smi}]")
     return {"max_abs_err": max(errs.values()), "ms": k_ms, "ms_rounds": k_all,
@@ -2139,32 +2182,42 @@ def dp_train(mesh):
     """(a) The fused fast_decay update over the ranks."""
     cfg = TP.PPOConfig(**TRAIN)
     init_fn, step_fn, _ = PM.make_distributed_ppo(TP.full_env_hooks(), cfg, mesh)
-    ts = init_fn([int(w) for w in KR.seed_key(0, device="cpu")])
-    illegal, digests, hist, upd_ms, host_ms = 0, [], [], [], []
-    zero_dp_counts()
-    with AllReduceClock() as clock:
-        for _ in range(DP_UPDATES):
+    state = {"ts": init_fn([int(w) for w in KR.seed_key(0, device="cpu")]), "illegal": 0}
+    digests, hist, upd_ms, host_ms = [], [], [], []
+
+    def run(n):
+        for _ in range(n):
             rec = {}
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
             e0.record()
-            ts, m = step_fn(ts, record=rec)
+            state["ts"], m = step_fn(state["ts"], record=rec)
             e1.record()
             e1.synchronize()
             host_ms.append((time.perf_counter() - t0) * 1e3)
             upd_ms.append(e0.elapsed_time(e1))
-            illegal += int(legal_count(rec["traj"]))
-            digests.append(param_digest(ts.params))
+            state["illegal"] += int(legal_count(rec["traj"]))
+            digests.append(param_digest(state["ts"].params))
             hist.append({k: float(v) for k, v in m.items()})
             del rec
-    launches = dp_counts()
+
+    zero_dp_counts()
+    with AllReduceClock() as clock:
+        run(1)                             # captures the collection's graph, then replays it
+        captured = dp_counts()
+        _, by_name = card_profile(lambda: run(DP_UPDATES - 1))
+    launches, illegal = kernel_launches(by_name), state["illegal"]
     T = cfg.rollout_len
-    want = {"K3b": DP_UPDATES, "K3a": DP_UPDATES * T, "sampler": DP_UPDATES * T}
-    assert {k: launches[k] for k in want} == want, (launches, want)
+    once = {"K3b": 1, "K3a": T, "sampler": T}
+    assert {k: captured[k] for k in once} == {k: 2 * n for k, n in once.items()}, captured
+    assert dp_counts() == captured, (dp_counts(), captured)
+    assert step_fn.collection.replays == DP_UPDATES, step_fn.collection.replays
+    want = {k: (DP_UPDATES - 1) * n for k, n in once.items()}
+    assert launches == want, (launches, want)
     assert illegal == 0, f"rank {mesh.rank}: {illegal} sampled actions were illegal"
     assert all(np.isfinite(v) for m in hist for v in m.values()), hist
-    return {"launches": launches, "digests": digests, "metrics_by_update": hist,
-            "update_ms": upd_ms, "host_update_ms": host_ms,
+    return {"launches": launches, "captured": captured, "digests": digests,
+            "metrics_by_update": hist, "update_ms": upd_ms, "host_update_ms": host_ms,
             "all_reduce_calls": clock.calls, "all_reduce_host_ms": clock.seconds * 1e3,
             "local_envs": cfg.n_envs // mesh.size}
 
@@ -2316,9 +2369,11 @@ def dp_nccl_main(tmp):
                "launches": launches, "metrics": {k: float(v) for k, v in m.items()}}
     finally:
         PM.destroy()
-    T, n = cfg.rollout_len, 2 * DP_NCCL_UPDATES
+    # both collections captured in the warm-up; a replay launches no wrapper
     assert {k: launches[k] for k in ("K3b", "K3a", "sampler")} == {
-        "K3b": n, "K3a": n * T, "sampler": n * T}
+        "K3b": 0, "K3a": 0, "sampler": 0}, launches
+    replays = (step_fn.collection.replays, plain_fn.collection.replays)
+    assert replays == (1 + DP_NCCL_UPDATES, 1 + DP_NCCL_UPDATES), replays
     res["built_nothing"] = all(v["cached"] for v in cuda_build.build_log.values())
     (Path(tmp) / "nccl.json").write_text(json.dumps(res))
     return 0
@@ -2377,7 +2432,10 @@ def phase_data_parallel(smi, train_ms):
                  "launches": res["train"]["launches"]} for res in ranks]
     log("24 data parallel", f"ok: (a) {DP_RANKS} ranks sharing the card over gloo, "
         f"fast_decay {cfg.n_envs}x{cfg.rollout_len} global ({ranks[0]['train']['local_envs']} "
-        f"envs a rank), {DP_UPDATES} updates: launches a rank "
+        f"envs a rank), {DP_UPDATES} updates, each a replay of the collection's graph: the "
+        f"wrappers' launches in the capture a rank "
+        f"{[res['train']['captured'] for res in ranks]}, launches in the last "
+        f"{DP_UPDATES - 1} updates a rank (profiler) "
         f"{[res['train']['launches'] for res in ranks]}; parameters equal across ranks after "
         f"every update; every action legal; update ms by rank (CUDA events; the first "
         f"holds each process's start-up on the card) "
@@ -2480,8 +2538,12 @@ def main(argv):
         call_ms = tm["call"][0]
         kernels.append({
             "name": kname, "route": "cuda", "source": policy_src, "replaces": replaces,
-            "launches": policy_launches[name], "trainer_launches": train_launches[name],
+            "launches": policy_launches[name],
+            # by kernel name in a profile of the trainer's last updates (graph replays)
+            "trainer_launches": train_launches[name],
+            "trainer_profiled_updates": TRAIN_UPDATES - 1,
             "dp_launches_by_rank": [r["launches"][name] for r in dp["per_rank"]],
+            "dp_profiled_updates": DP_UPDATES - 1,
             "max_abs_err": policy_err[name],
             "ms": tm["card_ms"] if tm["card_ms"] is not None else call_ms,
             "plain_ms": tm["plain"][0],

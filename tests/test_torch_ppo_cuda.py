@@ -2,6 +2,15 @@
 against the same update over the kernels' plain versions, and the sim
 learner on the card against the CPU.
 
+On the card the fused update's collection is one CUDA graph, captured on
+the learner's first update and replayed by every update; the tests below
+the first hold its replays against the eager plain path and check that a
+state or record an update returns is its own. The kernels' wrappers count
+their launches (``.launches``) in the graph's warm-up and capture, and a
+replay launches no wrapper: the counts below are the capture's, beside the
+graph's ``replays`` (``chip_smoke.py`` phases 15 and 24 count a replayed
+update's kernels by name in a profile of the card).
+
 These tests need a card and skip where torch sees none. The machine with
 the card has no JAX, and tests/conftest.py imports it, so this file imports
 torch and the port only and runs there with
@@ -19,6 +28,7 @@ on the CPU sums its matmuls in another order: env states, actions, rewards
 and dones exact, parameters within 1e-6.
 """
 import copy
+import dataclasses
 
 import pytest
 import torch
@@ -27,6 +37,8 @@ from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
 from balatro_gym_tpu_torch.ops import kernel_rng as KR
 from balatro_gym_tpu_torch.train import cli as TCLI
 from balatro_gym_tpu_torch.train import ppo as TP
+from balatro_gym_tpu_torch.utils import checkpoint as CK
+from balatro_gym_tpu_torch.utils import profiling as P
 
 pytestmark = pytest.mark.cuda
 
@@ -64,15 +76,15 @@ def test_fused_update_equals_plain_update(dev, bf16, shuffle):
     plain_ops = (FP.observe_rows_reference, FP.sample, FP.step_rows_reference)
     _, plain, _ = TP.make_ppo(hooks._replace(fused_ops=plain_ops), cfg)
     ts = init_fn(SEED)
-    for _ in range(2):                                     # a mid-game start
+    for _ in range(2):                      # a mid-game start; the first captures the graph
         ts, _ = fused(ts)
     ts_p = copy.deepcopy(ts)
     n0 = _counts()
     rec, rec_p = {}, {}
     ts, m = fused(ts, record=rec)
-    assert _counts() == (n0[0] + 1, n0[1] + cfg.rollout_len, n0[2] + cfg.rollout_len)
+    assert _counts() == n0 and fused.collection.replays == 3   # a replay launches no wrapper
     ts_p, m_p = plain(ts_p, record=rec_p)
-    assert _counts() == (n0[0] + 1, n0[1] + cfg.rollout_len, n0[2] + cfg.rollout_len)
+    assert _counts() == n0
     for name in ("action", "reward", "done", "value", "mask", "obs"):
         assert torch.equal(getattr(rec["traj"], name), getattr(rec_p["traj"], name)), name
     assert float((rec["traj"].log_prob - rec_p["traj"].log_prob).abs().max()) <= 1e-6
@@ -111,7 +123,9 @@ def test_entry_points_default_to_the_card(dev):
     assert ts.ret_carry.device == dev and ts.env_states["ints"].device == dev
     n0 = _counts()
     ts, m = update_fn(ts)
-    assert _counts() == (n0[0] + 1, n0[1] + 2, n0[2] + 2)
+    # the collection's graph captured (its warm-up and capture, 2 steps each) and replayed once
+    assert _counts() == (n0[0] + 2, n0[1] + 4, n0[2] + 4)
+    assert update_fn.collection.replays == 1
     assert all(torch.isfinite(v.float()) for v in m.values())
     ts, _ = TP.train(1, TP.PPOConfig(n_envs=32, rollout_len=2, epochs=1, minibatches=2,
                                      hidden=(32,)))
@@ -127,6 +141,116 @@ def test_cli_full_fused_trains_on_the_card(dev, tmp_path):
                          "--n-envs", "1024", "--rollout", "4", "--epochs", "1",
                          "--minibatches", "2", "--updates", "2", "--log-every", "1",
                          "--summary", str(tmp_path / "summary.json")])
+    # the collection's graph captured (its warm-up and capture, 4 steps each), then replayed
     assert _counts() == (n0[0] + 2, n0[1] + 8, n0[2] + 8)
     assert summary["total_env_steps"] == 2 * 1024 * 4 and summary["n_devices"] == 1
     assert all(v == v for v in summary["final_metrics"].values())          # no NaN
+
+
+def test_replayed_updates_equal_plain_updates(dev, tmp_path):
+    """Five updates of the graph (its capture on the first), the state
+    saved and restored between the second and the third, each held against
+    the same update over the kernels' plain versions from the same state."""
+    cfg = TP.PPOConfig(n_envs=1024, rollout_len=8, epochs=2, minibatches=2, fused_rollout=True,
+                       bf16_compute=True, env_shuffle=True, reset_envs_every=3)
+    hooks = TP.full_env_hooks()
+    init_fn, fused, _ = TP.make_ppo(hooks, cfg)
+    plain_ops = (FP.observe_rows_reference, FP.sample, FP.step_rows_reference)
+    _, plain, _ = TP.make_ppo(hooks._replace(fused_ops=plain_ops), cfg)
+    ts = init_fn(SEED)
+    for i in range(5):
+        if i == 2:
+            CK.save_train_state(tmp_path / "ts", ts)
+            ts = CK.restore_train_state(tmp_path / "ts", ts)
+        ts_p = copy.deepcopy(ts)
+        n0, T = _counts(), cfg.rollout_len
+        rec, rec_p = {}, {}
+        ts, m = fused(ts, record=rec)
+        # the capture's warm-up and capture launch through the wrappers; a replay launches none
+        want = (2, 2 * T, 2 * T) if i == 0 else (0, 0, 0)
+        assert _counts() == tuple(a + b for a, b in zip(n0, want))
+        assert fused.collection.replays == i + 1
+        ts_p, m_p = plain(ts_p, record=rec_p)
+        for name in ("action", "reward", "done", "value", "mask", "obs"):
+            assert torch.equal(getattr(rec["traj"], name), getattr(rec_p["traj"], name)), (i, name)
+        assert float((rec["traj"].log_prob - rec_p["traj"].log_prob).abs().max()) <= 1e-6
+        assert torch.equal(rec["raw"], rec_p["raw"]) and torch.equal(rec["rets"], rec_p["rets"])
+        for k in ("cards", "ints", "rng"):
+            assert torch.equal(ts.env_states[k], ts_p.env_states[k]), (i, k)
+        assert torch.equal(ts.ret_carry, ts_p.ret_carry)
+        assert_params(ts, ts_p)
+        assert_metrics(m, m_p)
+
+
+def tensors(x):
+    """The tensors of a tree of dicts, lists, tuples and dataclasses."""
+    if torch.is_tensor(x):
+        return [x]
+    if isinstance(x, dict):
+        x = list(x.values())
+    elif dataclasses.is_dataclass(x):
+        x = list(vars(x).values())
+    return [t for v in x for t in tensors(v)]
+
+
+def test_an_update_leaves_the_last_state_and_record_alone(dev):
+    """The graph's buffers change at every replay; a TrainState or a record
+    that an update returned does not."""
+    cfg = TP.PPOConfig(n_envs=512, rollout_len=4, epochs=1, minibatches=2, fused_rollout=True,
+                       bf16_compute=True)
+    init_fn, update_fn, _ = TP.make_ppo(TP.full_env_hooks(), cfg)
+    rec = {}
+    ts1, _ = update_fn(init_fn(SEED), record=rec)
+    held = copy.deepcopy((ts1.env_states, ts1.ret_carry, ts1.obs_stats, ts1.ret_stats,
+                          ts1.opt_state.mu, ts1.opt_state.nu, rec["traj"], rec["raw"],
+                          rec["rets"]))
+    ts2, _ = update_fn(ts1)
+    update_fn(ts2)
+    now = (ts1.env_states, ts1.ret_carry, ts1.obs_stats, ts1.ret_stats, ts1.opt_state.mu,
+           ts1.opt_state.nu, rec["traj"], rec["raw"], rec["rets"])
+    a, b = tensors(held), tensors(now)
+    assert len(a) == len(b) > 20
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not torch.equal(ts2.env_states["ints"], ts1.env_states["ints"])
+
+
+def test_each_update_replays_once_without_host_syncs(dev):
+    cfg = TP.PPOConfig(n_envs=512, rollout_len=4, epochs=1, minibatches=2, fused_rollout=True,
+                       bf16_compute=True, env_shuffle=True)
+    init_fn, update_fn, _ = TP.make_ppo(TP.full_env_hooks(), cfg)
+    ts = init_fn(SEED)
+    P.reset()
+    try:
+        for _ in range(3):
+            ts, _ = update_fn(ts, record={})
+        torch.cuda.synchronize()
+        trees = P.trees("ppo.update")
+    finally:
+        P.reset()
+    assert len(trees) == 3 and update_fn.collection.replays == 3
+    for i, tree in enumerate(trees):
+        names = [s["name"] for s in tree["spans"]]
+        collect = next(s["id"] for s in tree["spans"] if s["name"] == "ppo.collect")
+        replay = [s for s in tree["spans"] if s["name"] == "ppo.collect.replay"]
+        assert len(replay) == 1 and replay[0]["parent"] == collect
+        assert names.count("ppo.collect.capture") == (i == 0)
+        # the capture's warm-up and capture run the rollout's steps; a replay none
+        assert names.count("ppo.collect.policy") == (2 * cfg.rollout_len if i == 0 else 0)
+        if i:
+            assert tree["syncs"] == 0, tree["syncs"]
+
+
+@pytest.mark.parametrize("layout", ["policy", "row_major"])
+def test_sample_fused_reads_the_key_on_the_card(dev, layout):
+    g = torch.Generator(device=dev).manual_seed(3)
+    n = 1000
+    logits = torch.randn(FP.N_ACTIONS, n, generator=g, device=dev).T * 3
+    logits = torch.where(torch.rand(n, FP.N_ACTIONS, generator=g, device=dev) < 0.3, -1e9, logits)
+    if layout == "row_major":
+        logits = logits.contiguous()
+    for key in [(0, 7), (0xFFFFFFFF, 0x80000000), (0x12345678, 0x9ABCDEF0)]:
+        rows = FP.step_key_rows(torch.tensor(key, dtype=torch.int64, device=dev), 3)
+        for row, words in zip(rows, KR.split_keys(key, 3)):
+            a, lp = FP.sample_fused(words, logits)
+            b, lq = FP.sample_fused(row, logits)
+            assert torch.equal(a, b) and torch.equal(lp, lq)
