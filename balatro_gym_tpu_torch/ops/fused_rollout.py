@@ -13,7 +13,10 @@ per-env reward sum, in int32/float32 as the TPU kernel computes.
   launches ``csrc/fused_rollout.cu`` (built with nvcc on first use) or
   raises. It counts its launches in
   ``rollout_fused.launches``; ``rollout_kernel_shape`` reads the kernel's
-  launch shape from the built library.
+  launch shape from the built library. A call is the span ``sim.call``
+  (``utils/profiling.py``), holding ``sim.coef`` (the joker coefficients
+  and the actions, ``_prepare``) and ``sim.launch`` (the outputs' allocation
+  and the kernel's enqueue, or the plain version).
 * ``rollout_fused_reference`` is the plain version: batched tensor ops over
   ``[B]`` rows with a Python loop over steps, on any device. Its float
   arithmetic follows the kernel op for op (all additive terms are exact
@@ -46,6 +49,7 @@ from balatro_gym_tpu_torch.ops import cuda_build
 from balatro_gym_tpu_torch.ops import joker_tables as JT
 from balatro_gym_tpu_torch.ops import kernel_rng as KR
 from balatro_gym_tpu_torch.ops.hand_eval import evaluate_sim
+from balatro_gym_tpu_torch.utils import profiling as P
 
 N_CARDS = 8
 MAX_JOKERS = 5
@@ -404,13 +408,16 @@ def rollout_fused(seed, n_envs: int, n_steps: int, jokers=(0, 0, 0, 0, 0), *,
     raise. With ``device="cpu"`` this is the plain version; on a card it is
     the CUDA kernel.
     """
-    coef, actions = _prepare(n_envs, n_steps, jokers, actions, device)
-    dev = coef[0].device
-    if dev.type == "cpu":
-        return _as_dict(*_reference_rows(coef, seed, actions, n_steps))
-    if dev.type != "cuda":
-        raise ValueError(f"rollout_fused: no kernel for device {dev}")
-    return _as_dict(*_kernel_rows(coef, seed, actions, n_steps))
+    with P.span("sim.call"):
+        with P.span("sim.coef"):
+            coef, actions = _prepare(n_envs, n_steps, jokers, actions, device)
+        dev = coef[0].device
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"rollout_fused: no kernel for device {dev}")
+        with P.span("sim.launch"):
+            run = _reference_rows if dev.type == "cpu" else _kernel_rows
+            out = run(coef, seed, actions, n_steps)
+        return _as_dict(*out)
 
 
 rollout_fused.launches = 0
