@@ -38,11 +38,17 @@ rollout's on the device from the key's two words (copied there from pinned
 memory), and every per-step value stays on the device.
 
 On a card, the fused rollout over the kernels' own wrappers (``fused_ops``
-None) is one CUDA graph (:class:`CollectionGraph`), captured on the
+None) is one CUDA graph (a :class:`StageGraph`), captured on the
 learner's first update and replayed once an update, so the host enqueues a
 collection in one call instead of ~40 torch calls a step. Its kernels and
 their order are the eager loop's, which runs on the CPU and over other
-``fused_ops``; the generic rollout stays eager.
+``fused_ops``; the generic rollout stays eager. Shuffle + SGD is a second
+such graph on a card wherever its steps are fixed on the host (no
+``mesh``, no KL gate), on either rollout: the numbers the host sets each
+update (the permutations' key words, the entropy coefficient, each step's
+lr and the reciprocals of Adam's bias corrections) reach it as one vector
+copied from pinned memory. The eager stage, on the CPU, a mesh's ranks and
+under the KL gate, runs the same body on python numbers.
 
 Given a data-parallel ``mesh`` (``parallel/mesh.py``), an update is the
 reference's ``axis_name`` path: each rank steps its own shard of the envs
@@ -206,22 +212,38 @@ def clip_by_global_norm(grads, max_norm: float):
     return [torch.where(keep, g, g / g_norm * max_norm) for g in grads]
 
 
-def adam_update(params, grads, st: AdamState, lr: float, max_norm: float | None,
-                b1=0.9, b2=0.999, eps=1e-5) -> AdamState:
+def adam_bias_corrections(count: int, b1=0.9, b2=0.999) -> tuple:
+    """Adam's ``(1 - b1**count, 1 - b2**count)`` in float32, as python
+    floats."""
+    return tuple(float(np.float32(1) - np.float32(b) ** np.float32(count)) for b in (b1, b2))
+
+
+def adam_update(params, grads, st: AdamState, lr, max_norm: float | None,
+                b1=0.9, b2=0.999, eps=1e-5, inv_bc=None) -> AdamState:
     """One step of ``chain(clip_by_global_norm(max_norm), adam(lr, eps))``,
     or of plain ``adam(lr, eps)`` with ``max_norm=None``: the parameters
-    change in place; returns the new state."""
+    change in place; returns the new state. ``lr`` is a float or a 0-dim
+    tensor. The moments are divided by the bias corrections at the
+    incremented count (:func:`adam_bias_corrections`), or, given
+    ``inv_bc``, multiplied by these reciprocals in float32: 0-dim tensors,
+    where a CUDA graph replays the step at other counts. A card divides by
+    a python number as that product, so the two forms agree bit for bit
+    there."""
     if max_norm is not None:
         grads = clip_by_global_norm(grads, max_norm)
     count = st.count + 1
-    bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
-    bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
+    if inv_bc is None:
+        bc1, bc2 = adam_bias_corrections(count, b1, b2)
     mus, nus = [], []
     with torch.no_grad():
         for p, g, mu, nu in zip(params, grads, st.mu, st.nu):
             mu = (1 - b1) * g + b1 * mu
             nu = (1 - b2) * (g * g) + b2 * nu
-            p.add_((-lr) * ((mu / bc1) / (torch.sqrt(nu / bc2) + eps)))
+            if inv_bc is None:
+                step = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+            else:
+                step = (mu * inv_bc[0]) / (torch.sqrt(nu * inv_bc[1]) + eps)
+            p.add_((-lr) * step)
             mus.append(mu)
             nus.append(nu)
     return AdamState(count, mus, nus)
@@ -360,74 +382,213 @@ def _keys(key, n, dev, first: int = 0):
     return torch.stack(KR.split_child(*key, torch.arange(first, first + n, device=dev)), -1)
 
 
-def _key_words(key, dev):
-    """A key's two 32-bit words as a ``[2]`` int64 tensor on ``dev``: to a
-    card from pinned memory, without a host sync."""
-    words = torch.tensor([int(w) for w in key], dtype=torch.int64)
-    return words.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else words
+def _to_device(values, dtype, dev):
+    """Host numbers as a 1-d ``dtype`` tensor on ``dev``: to a card from
+    pinned memory, without a host sync."""
+    t = torch.tensor(values, dtype=dtype)
+    return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
 
 
-class CollectionGraph:
-    """A fused rollout on a card as one CUDA graph, replayed once a call.
+def lr_schedule(cfg: PPOConfig):
+    """The learning rate of an Adam step count: linear from ``cfg.lr`` to
+    ``cfg.lr_final`` over the run's steps where both are set, else
+    ``cfg.lr``."""
+    if cfg.lr_final >= 0.0 and cfg.total_updates > 0:
+        return linear_schedule(cfg.lr, cfg.lr_final,
+                               cfg.total_updates * cfg.epochs * cfg.minibatches)
+    return lambda count: cfg.lr                                     # noqa: E731
 
-    ``body(net, env_states, key, obs_stats, ret_stats, ret_carry)`` is the
-    learner's rollout. The first call runs ``body`` once on a side stream (the
-    warm-up: the kernels' loads, the float tables, cuBLAS's workspace; its
-    outputs are dropped), then captures it on static inputs: a copy of the
-    policy, the packed env rows, the key's words, both statistics and the
-    return carry. Every call copies its own inputs into them (so a restored
-    or copied ``TrainState`` replays as well as the last one), replays the
-    graph on the current stream and returns ``body``'s outputs: the env
-    rows and the return carry cloned, the trajectory, raw rewards, return
-    carries and last observation and mask as the graph's own buffers,
-    which the next replay overwrites. A failed capture raises.
+
+def ent_coef_at(cfg: PPOConfig, update_idx: int) -> float:
+    """The entropy coefficient of update ``update_idx``: linear from
+    ``cfg.ent_coef`` to ``cfg.ent_coef_final`` over the run where both are
+    set, in float32."""
+    if cfg.ent_coef_final >= 0.0 and cfg.total_updates > 0:
+        frac = np.clip(np.float32(update_idx) / np.float32(cfg.total_updates),
+                       np.float32(0), np.float32(1))
+        return float(np.float32(cfg.ent_coef)
+                     + np.float32(cfg.ent_coef_final - cfg.ent_coef) * frac)
+    return float(np.float32(cfg.ent_coef))
+
+
+def make_sgd(cfg: PPOConfig, dev, mesh=None):
+    """Shuffle + SGD, the last stage of :func:`make_ppo`'s update:
+    ``sgd(net, opt, traj, adv, ret, keys, ent_coef, sched) -> (AdamState,
+    metrics)``. ``cfg.epochs`` epochs over the rollout, each cut by a
+    permutation (``keys``: the epoch's two key words as 0-dim int64
+    tensors) into ``cfg.minibatches`` minibatches; each minibatch a PPO
+    loss, its gradients and an Adam step at ``sched(count) = (lr, the
+    reciprocals of the bias corrections or None)``, ``count`` the steps
+    applied before it. The
+    metrics are the minibatches' means of (loss, pg_loss, vf_loss, entropy,
+    approx_kl, kl_skipped), one ``[6]`` tensor. With a ``mesh`` the
+    gradients and approx-KL are averaged over the ranks; with
+    ``cfg.kl_target`` a minibatch whose approx-KL exceeds it stops the
+    steps (read on the host)."""
+    flags = (torch.zeros((), device=dev), torch.ones((), device=dev))    # kl_skipped
+
+    def sgd(net, opt, traj, adv, ret, keys, ent_coef, sched):
+        T, E = traj.action.shape
+        params, stop, rows = param_list(net), False, []
+        for kt in keys:
+            with P.span("ppo.sgd.shuffle"):
+                if cfg.env_shuffle:
+                    perm = KR.permutation(*kt, E).view(cfg.minibatches, -1)
+                    pick = [lambda x, idx=idx: x[:, idx].reshape((-1,) + x.shape[2:])
+                            for idx in perm]
+                else:
+                    perm = KR.permutation(*kt, T * E).view(cfg.minibatches, -1)
+                    pick = [lambda x, idx=idx: x.reshape((T * E,) + x.shape[2:])[idx]
+                            for idx in perm]
+            for take in pick:
+                with P.span("ppo.sgd.loss"):
+                    batch = (Transition(*(take(x) for x in traj)), take(adv), take(ret))
+                    total, aux = ppo_loss(net, batch, ent_coef, cfg)
+                if mesh is None:
+                    if cfg.kl_target > 0.0:
+                        stop = stop or bool(aux[-1] > cfg.kl_target)
+                    if not stop:
+                        with P.span("ppo.sgd.backward"):
+                            grads = torch.autograd.grad(total, params)
+                elif not stop:      # the gate reads the KL averaged over the ranks
+                    with P.span("ppo.sgd.backward"):
+                        grads, kl = mean_grads(mesh, torch.autograd.grad(total, params), aux[-1])
+                    if cfg.kl_target > 0.0:
+                        stop = bool(kl > cfg.kl_target)
+                if not stop:
+                    with P.span("ppo.sgd.adam"):
+                        lr, inv_bc = sched(opt.count)
+                        opt = adam_update(params, grads, opt, lr, cfg.max_grad_norm,
+                                          inv_bc=inv_bc)
+                rows.append(torch.stack([total.detach(), *aux, flags[stop]]))
+        return opt, torch.stack(rows).mean(0)
+    return sgd
+
+
+def sgd_scalars(cfg: PPOConfig, k_perm, update_idx: int, count: int) -> list:
+    """The numbers the host sets for one shuffle + SGD of a fixed
+    ``cfg.epochs x cfg.minibatches`` steps (no KL gate), as python numbers in
+    the order :func:`read_sgd_scalars` reads them: each epoch's two key
+    words (the children of ``split(k_perm, cfg.epochs)``, hashed from the
+    python ints of ``k_perm``), the entropy coefficient of update
+    ``update_idx``, then for each step the lr and the float32 reciprocals of
+    Adam's two bias corrections, the steps counted from ``count``."""
+    lr_at = lr_schedule(cfg)
+    out = [w for i in range(cfg.epochs) for w in KR.split_child(*k_perm, i)]
+    out.append(ent_coef_at(cfg, update_idx))
+    for c in range(count, count + cfg.epochs * cfg.minibatches):
+        out += [lr_at(c), *(float(np.float32(1) / np.float32(bc))
+                            for bc in adam_bias_corrections(c + 1))]
+    return out
+
+
+def read_sgd_scalars(cfg: PPOConfig, scalars, count: int) -> tuple:
+    """(keys, ent_coef, sched) of ``make_sgd``'s stage from a float64 tensor
+    of :func:`sgd_scalars` (which holds the key words and float32 values
+    exactly): the key words as 0-dim int64 tensors, the rest as 0-dim
+    float32 tensors, ``sched`` counting the steps from ``count``."""
+    n = 2 * cfg.epochs
+    words, f = scalars[:n].to(torch.int64), scalars[n:].to(_F32)
+    keys = [(words[i], words[i + 1]) for i in range(0, n, 2)]
+
+    def sched(c):
+        i = 1 + 3 * (c - count)
+        return f[i], (f[i + 1], f[i + 2])
+    return keys, f[0], sched
+
+
+def _tensors(x) -> list:
+    """The tensors of a stage's inputs in a fixed order: a policy's
+    parameters, a dict's values by key, a dataclass's fields, a tuple's or
+    list's items."""
+    if isinstance(x, torch.nn.Module):
+        return param_list(x)
+    if torch.is_tensor(x):
+        return [x]
+    if isinstance(x, dict):
+        x = [x[k] for k in sorted(x)]
+    elif dataclasses.is_dataclass(x):
+        x = [getattr(x, f.name) for f in dataclasses.fields(x)]
+    elif not isinstance(x, (tuple, list)):
+        return []
+    return [t for v in x for t in _tensors(v)]
+
+
+def _static_copy(x, keep):
+    """A stage's inputs to capture it on: the policy deep-copied, every
+    tensor cloned but those in ``keep``, the containers rebuilt."""
+    if isinstance(x, torch.nn.Module):
+        return copy.deepcopy(x)
+    if torch.is_tensor(x):
+        return x if any(x is k for k in keep) else x.clone()
+    if isinstance(x, dict):
+        return {k: _static_copy(v, keep) for k, v in x.items()}
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: _static_copy(getattr(x, f.name), keep)
+                                         for f in dataclasses.fields(x)})
+    if isinstance(x, tuple) and hasattr(x, "_fields"):                 # a NamedTuple
+        return type(x)(*(_static_copy(v, keep) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_static_copy(v, keep) for v in x)
+    return x
+
+
+class StageGraph:
+    """A stage of the learner's update on a card as one CUDA graph,
+    replayed once a call: the fused collection and shuffle + SGD.
+
+    ``body(*args)`` is the stage. The first call runs it once on a side
+    stream (the warm-up: the kernels' loads, cuBLAS's workspace, autograd's
+    and the allocator's buffers; its outputs dropped), then captures it on
+    static inputs: a copy of ``args`` (:func:`_static_copy`) less the
+    tensors that ``shared()`` lists, which are their own static tensors
+    (the collection graph's buffers, which every collection rewrites in
+    place). Every call copies each input tensor into its static tensor
+    where it is not that tensor already (so a restored or copied
+    ``TrainState`` replays as well as the last one), replays the graph on
+    the current stream and returns ``finish(args, out)``: ``out`` is the
+    capture's outputs, the graph's own buffers, which the next replay
+    overwrites. A failed capture raises.
 
     The kernels' wrappers count their launches (``.launches``) in the
     warm-up and in the capture, and not in a replay, which launches no
-    wrapper; ``replays`` counts the replays. Spans: ``ppo.collect.capture``
-    around the first call's warm-up and capture (the rollout's per-step
-    spans are kept then, twice), ``ppo.collect.replay`` around each
-    replay."""
+    wrapper; ``replays`` counts the replays. Spans: ``<span>.capture``
+    around the first call's warm-up and capture (the stage's own spans are
+    kept then, twice), ``<span>.replay`` around each replay."""
 
-    def __init__(self, body):
-        self.body = body
+    def __init__(self, span: str, body, finish, shared=tuple):
+        self.span, self.body, self.finish, self.shared = span, body, finish, shared
         self.graph, self.replays = None, 0
 
-    @staticmethod
-    def _flat(net, env_states, key, obs_stats, ret_stats, ret_carry) -> list:
-        return [*param_list(net), *(env_states[k] for k in sorted(env_states)), key,
-                *(x for s in (obs_stats, ret_stats) for x in (s.mean, s.var, s.count)),
-                ret_carry]
-
-    def _capture(self, net, env_states, key, obs_stats, ret_stats, ret_carry):
-        self.net = copy.deepcopy(net)
-        self.args = ({k: v.clone() for k, v in env_states.items()}, key.clone(),
-                     *(RunningStats(s.mean.clone(), s.var.clone(), s.count.clone())
-                       for s in (obs_stats, ret_stats)), ret_carry.clone())
-        self.static = self._flat(self.net, *self.args)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self.body(self.net, *self.args)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        # thread_local: a data-parallel rank's communicator threads keep querying the card
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self.out = self.body(self.net, *self.args)
-        self.graph = graph
-
-    def __call__(self, net, env_states, key, obs_stats, ret_stats, ret_carry):
+    def __call__(self, *args):
         if self.graph is None:
-            with P.span("ppo.collect.capture"):
-                self._capture(net, env_states, key, obs_stats, ret_stats, ret_carry)
-        with P.span("ppo.collect.replay"):
-            torch._foreach_copy_(self.static, self._flat(net, env_states, key, obs_stats,
-                                                         ret_stats, ret_carry))
+            with P.span(self.span + ".capture"):
+                self.args = _static_copy(args, self.shared())
+                self.static = _tensors(self.args)
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    self.body(*self.args)
+                torch.cuda.current_stream().wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                # thread_local: a data-parallel rank's communicator threads keep querying the card
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    self.out = self.body(*self.args)
+                self.graph = graph
+        with P.span(self.span + ".replay"), torch.no_grad():
+            moved = [(s, x) for s, x in zip(self.static, _tensors(args)) if s is not x]
+            torch._foreach_copy_([s for s, _ in moved], [x for _, x in moved])
             self.graph.replay()
             self.replays += 1
-            env, traj, raw, rets, carry, obs, mask = self.out
-            return ({k: v.clone() for k, v in env.items()}, traj, raw, rets, carry.clone(),
-                    obs, mask)
+            return self.finish(args, self.out)
+
+
+def _collection_outputs(args, out):
+    """The fused rollout's outputs from its graph: the env rows and the
+    return carry cloned; the trajectory, raw rewards, return carries and
+    last observation and mask the graph's own buffers."""
+    env, traj, raw, rets, carry, obs, mask = out
+    return ({k: v.clone() for k, v in env.items()}, traj, raw, rets, carry.clone(), obs, mask)
 
 
 def _where_lanes(lanes, a, b):
@@ -462,10 +623,13 @@ def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None, mesh=None):
     first update, which keeps the step spans, and ``ppo.collect.replay``),
     ``ppo.stats``, ``ppo.gae`` and ``ppo.sgd`` (an epoch's
     ``ppo.sgd.shuffle``, a minibatch's ``ppo.sgd.loss``, ``.backward``,
-    ``.adam``); the four stages also record the CUDA events.
-    ``update_fn.collection`` is the rollout it calls: a
-    :class:`CollectionGraph` (whose ``replays`` counts its replays) where
-    the collection is a CUDA graph.
+    ``.adam``; where the stage is a CUDA graph, ``ppo.sgd.capture`` on the
+    first update, which keeps those spans, and ``ppo.sgd.replay``); the four
+    stages also record the CUDA events. ``update_fn.collection`` is the
+    rollout it calls, a :class:`StageGraph` (whose ``replays`` counts its
+    replays) where the collection is a CUDA graph; ``update_fn.sgd`` the
+    shuffle + SGD stage, a :class:`StageGraph` where that is one: on a card
+    with no ``mesh`` and ``cfg.kl_target == 0``.
     policy_fn(params, obs, mask) -> (logits, value).
 
     device: where to run (default: the card; it raises where there is none;
@@ -484,15 +648,12 @@ def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None, mesh=None):
     _check(hooks, cfg, n_local)
     dev = run_device((), device)
     fused = cfg.fused_rollout
-    if cfg.lr_final >= 0.0 and cfg.total_updates > 0:
-        lr_at = linear_schedule(cfg.lr, cfg.lr_final,
-                                cfg.total_updates * cfg.epochs * cfg.minibatches)
-    else:
-        lr_at = lambda count: cfg.lr                               # noqa: E731
+    lr_at = lr_schedule(cfg)
     store_dt = torch.bfloat16 if (fused and cfg.bf16_compute) else _F32
-    flags = (torch.zeros((), device=dev), torch.ones((), device=dev))    # kl_skipped
     # the fused collection is a CUDA graph on a card over the kernels' own wrappers
     graphed = fused and dev.type == "cuda" and hooks.fused_ops is None
+    # shuffle + SGD is one where its steps are fixed on the host: no mesh, no KL gate
+    sgd_graphed = dev.type == "cuda" and mesh is None and cfg.kl_target == 0.0
     if fused:
         from balatro_gym_tpu_torch.ops import fused_full_rollout as FF
         from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
@@ -598,7 +759,26 @@ def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None, mesh=None):
         traj = Transition(*(buf[k] for k in Transition._fields))
         return env_states, traj, buf["raw"], buf["rets"], ret_carry, obs, mask
 
-    collection = CollectionGraph(rollout) if graphed else rollout
+    collection = StageGraph("ppo.collect", rollout, _collection_outputs) if graphed else rollout
+    stage = make_sgd(cfg, dev, mesh)
+
+    def stage_on_scalars(net, opt, traj, adv, ret, scalars):
+        opt, means = stage(net, opt, traj, adv, ret, *read_sgd_scalars(cfg, scalars, opt.count))
+        return param_list(net), opt, means
+
+    def sgd_outputs(args, out):
+        """The weights copied into the learner's parameters; Adam's state
+        (the count advanced by the graph's steps) and the metrics cloned, so
+        nothing returned changes at the next replay."""
+        (net, opt, *_), (params, new, means) = args, out
+        torch._foreach_copy_(param_list(net), params)
+        return (AdamState(opt.count + cfg.epochs * cfg.minibatches,
+                          [m.clone() for m in new.mu], [v.clone() for v in new.nu]),
+                means.clone())
+    # on the fused path the trajectory is the collection graph's own buffers
+    sgd = (StageGraph("ppo.sgd", stage_on_scalars, sgd_outputs,
+                      (lambda: collection.out[1]) if graphed else tuple)
+           if sgd_graphed else stage)
 
     def update_fn(ts: TrainState, record: dict | None = None):
         with P.recording(record is not None), P.span("ppo.update"):
@@ -622,7 +802,7 @@ def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None, mesh=None):
                                               env_states)
                     ret_carry0 = torch.where(lanes, 0.0, ret_carry0)
                 if fused:
-                    k_roll = _key_words(k_roll, dev)
+                    k_roll = _to_device([int(w) for w in k_roll], torch.int64, dev)
                 env_states, traj, raw, rets, ret_carry, last_obs, last_mask = collection(
                     net, env_states, k_roll, ts.obs_stats, ts.ret_stats, ret_carry0)
             with P.span("ppo.stats", events=cuda) as stats:
@@ -637,56 +817,21 @@ def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None, mesh=None):
                 _, last_value = net(last_obs, last_mask)
                 adv, ret = gae(traj, last_value, cfg.gamma, cfg.gae_lambda)
 
-        with P.span("ppo.sgd", events=cuda) as sgd:
+        with P.span("ppo.sgd", events=cuda) as shuffle_sgd:
             if record is not None:      # the graph's buffers change at its next replay
                 own = (lambda x: x.clone()) if graphed else (lambda x: x)  # noqa: E731
                 record.update(traj=Transition(*map(own, traj)), raw=own(raw), rets=own(rets),
                               adv=adv)
-            T = traj.action.shape[0]
-            if cfg.ent_coef_final >= 0.0 and cfg.total_updates > 0:
-                frac = np.clip(np.float32(ts.update_idx) / np.float32(cfg.total_updates),
-                               np.float32(0), np.float32(1))
-                ent_coef = float(np.float32(cfg.ent_coef)
-                                 + np.float32(cfg.ent_coef_final - cfg.ent_coef) * frac)
+            if sgd_graphed:
+                scalars = _to_device(sgd_scalars(cfg, k_perm, ts.update_idx, ts.opt_state.count),
+                                     torch.float64, dev)
+                opt, means = sgd(net, ts.opt_state, traj, adv, ret, scalars)
             else:
-                ent_coef = float(np.float32(cfg.ent_coef))
-            data = (traj, adv, ret)
-            params, opt, stop = param_list(net), ts.opt_state, False
-            rows = []
-            for k in KR.split_keys(k_perm, cfg.epochs):
-                with P.span("ppo.sgd.shuffle"):
-                    kt = [torch.full((), w, dtype=torch.int64, device=dev) for w in k]
-                    if cfg.env_shuffle:
-                        perm = KR.permutation(*kt, E).view(cfg.minibatches, -1)
-                        pick = [lambda x, idx=idx: x[:, idx].reshape((-1,) + x.shape[2:])
-                                for idx in perm]
-                    else:
-                        perm = KR.permutation(*kt, T * E).view(cfg.minibatches, -1)
-                        pick = [lambda x, idx=idx: x.reshape((T * E,) + x.shape[2:])[idx]
-                                for idx in perm]
-                for take in pick:
-                    with P.span("ppo.sgd.loss"):
-                        t, a, r = data
-                        batch = (Transition(*(take(x) for x in t)), take(a), take(r))
-                        total, aux = ppo_loss(net, batch, ent_coef, cfg)
-                    if mesh is None:
-                        if cfg.kl_target > 0.0:
-                            stop = stop or bool(aux[-1] > cfg.kl_target)
-                        if not stop:
-                            with P.span("ppo.sgd.backward"):
-                                grads = torch.autograd.grad(total, params)
-                    elif not stop:      # the gate reads the KL averaged over the ranks
-                        with P.span("ppo.sgd.backward"):
-                            grads, kl = mean_grads(mesh, torch.autograd.grad(total, params),
-                                                   aux[-1])
-                        if cfg.kl_target > 0.0:
-                            stop = bool(kl > cfg.kl_target)
-                    if not stop:
-                        with P.span("ppo.sgd.adam"):
-                            opt = adam_update(params, grads, opt, lr_at(opt.count),
-                                              cfg.max_grad_norm)
-                    rows.append(torch.stack([total.detach(), *aux, flags[stop]]))
-            loss, pg, vf, ent, approx_kl, kl_skipped = torch.stack(rows).mean(0)
+                keys = [[torch.full((), w, dtype=torch.int64, device=dev) for w in k]
+                        for k in KR.split_keys(k_perm, cfg.epochs)]
+                opt, means = sgd(net, ts.opt_state, traj, adv, ret, keys,
+                                 ent_coef_at(cfg, ts.update_idx), lambda c: (lr_at(c), None))
+            loss, pg, vf, ent, approx_kl, kl_skipped = means
             mean_reward, episodes = raw.mean(), traj.done.sum()
             if mesh is not None:
                 red = mesh.sum_(torch.stack([loss, pg, vf, ent, mean_reward, approx_kl,
@@ -698,7 +843,7 @@ def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None, mesh=None):
             if cuda:        # the stages' ends, as one CUDA event each
                 events += [("start", collect.events[0]), ("collection", collect.events[1]),
                            ("stats", stats.events[1]), ("last value + GAE", last.events[1]),
-                           ("shuffle + SGD", sgd.events[1])]
+                           ("shuffle + SGD", shuffle_sgd.events[1])]
         out = TrainState(params=net, opt_state=opt, env_states=env_states, key=key,
                          update_idx=ts.update_idx + 1, obs_stats=obs_stats,
                          ret_stats=ret_stats, ret_carry=ret_carry)
@@ -709,7 +854,7 @@ def make_ppo(hooks: EnvHooks, cfg: PPOConfig, *, device=None, mesh=None):
     def policy_fn(params, obs, mask):
         return params(obs, mask)
 
-    update_fn.collection = collection
+    update_fn.collection, update_fn.sgd = collection, sgd
     return init_fn, update_fn, policy_fn
 
 

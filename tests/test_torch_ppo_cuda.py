@@ -5,7 +5,11 @@ learner on the card against the CPU.
 On the card the fused update's collection is one CUDA graph, captured on
 the learner's first update and replayed by every update; the tests below
 the first hold its replays against the eager plain path and check that a
-state or record an update returns is its own. The kernels' wrappers count
+state or record an update returns is its own. Shuffle + SGD is a second
+graph on the card, on the fused and the generic path alike, wherever no
+KL gate reads the card: its replays are held against the eager stage on
+the card, which a KL target that no minibatch reaches (``EAGER_KL``) keeps
+(the gate then stops nothing, so the steps are the same). The kernels' wrappers count
 their launches (``.launches``) in the graph's warm-up and capture, and a
 replay launches no wrapper: the counts below are the capture's, beside the
 graph's ``replays`` (``chip_smoke.py`` phases 15 and 24 count a replayed
@@ -43,6 +47,7 @@ from balatro_gym_tpu_torch.utils import profiling as P
 pytestmark = pytest.mark.cuda
 
 SEED = [int(w) for w in KR.seed_key(0, device="cpu")]
+EAGER_KL = 1e30         # a KL gate that never stops: the eager stage, the same steps
 
 
 @pytest.fixture(scope="module")
@@ -125,7 +130,7 @@ def test_entry_points_default_to_the_card(dev):
     ts, m = update_fn(ts)
     # the collection's graph captured (its warm-up and capture, 2 steps each) and replayed once
     assert _counts() == (n0[0] + 2, n0[1] + 4, n0[2] + 4)
-    assert update_fn.collection.replays == 1
+    assert update_fn.collection.replays == 1 and update_fn.sgd.replays == 1
     assert all(torch.isfinite(v.float()) for v in m.values())
     ts, _ = TP.train(1, TP.PPOConfig(n_envs=32, rollout_len=2, epochs=1, minibatches=2,
                                      hidden=(32,)))
@@ -254,3 +259,116 @@ def test_sample_fused_reads_the_key_on_the_card(dev, layout):
             a, lp = FP.sample_fused(words, logits)
             b, lq = FP.sample_fused(row, logits)
             assert torch.equal(a, b) and torch.equal(lp, lq)
+
+
+SGD_CASES = {
+    "fused": dict(n_envs=1024, rollout_len=8, fused_rollout=True, bf16_compute=True,
+                  env_shuffle=True, reset_envs_every=3),
+    "generic": dict(n_envs=256, rollout_len=4),
+}
+
+
+def sgd_learners(case, **extra):
+    """(init_fn, the learner whose shuffle + SGD is a graph, the same
+    learner with the eager stage) of a case of :data:`SGD_CASES`, on the
+    card, with a schedule of lr and entropy so each replay reads new
+    numbers."""
+    cfg = TP.PPOConfig(epochs=2, minibatches=2, total_updates=6, lr_final=1e-5,
+                       ent_coef_final=0.001, **{**SGD_CASES[case], **extra})
+    init_fn, graphed, _ = TP.make_ppo(TP.full_env_hooks(), cfg)
+    _, eager, _ = TP.make_ppo(TP.full_env_hooks(), dataclasses.replace(cfg, kl_target=EAGER_KL))
+    assert isinstance(graphed.sgd, TP.StageGraph) and not isinstance(eager.sgd, TP.StageGraph)
+    return cfg, init_fn, graphed, eager
+
+
+@pytest.mark.parametrize("case", list(SGD_CASES))
+def test_replayed_sgd_equals_the_eager_stage(dev, case, tmp_path):
+    """Five updates whose shuffle + SGD replays the graph (its capture on
+    the first), the state saved and restored between the second and the
+    third, each held against the eager stage on the card from the same
+    state: the same trajectory, Adam count, parameters, moments and metrics
+    bit for bit (the graph multiplies by the reciprocals of the bias
+    corrections, as the card divides by the eager stage's python
+    numbers)."""
+    cfg, init_fn, graphed, eager = sgd_learners(case)
+    ts = init_fn(SEED)
+    for i in range(5):
+        if i == 2:
+            CK.save_train_state(tmp_path / "ts", ts)
+            ts = CK.restore_train_state(tmp_path / "ts", ts)
+        ts_e = copy.deepcopy(ts)
+        rec, rec_e = {}, {}
+        ts, m = graphed(ts, record=rec)
+        ts_e, m_e = eager(ts_e, record=rec_e)
+        assert graphed.sgd.replays == i + 1
+        for name in TP.Transition._fields:
+            assert torch.equal(getattr(rec["traj"], name), getattr(rec_e["traj"], name)), name
+        assert ts.opt_state.count == ts_e.opt_state.count == (i + 1) * 4
+        assert ts.update_idx == ts_e.update_idx == i + 1
+        for a, b in zip(TP.param_list(ts.params) + ts.opt_state.mu + ts.opt_state.nu,
+                        TP.param_list(ts_e.params) + ts_e.opt_state.mu + ts_e.opt_state.nu):
+            assert torch.equal(a, b)
+        assert all(torch.equal(m[k], m_e[k]) for k in m_e), (m, m_e)
+
+
+@pytest.mark.parametrize("case", list(SGD_CASES))
+def test_replays_leave_held_moments_and_metrics_alone(dev, case):
+    """The graph's moments and metrics change at every replay; the Adam
+    state and the metrics an update returned do not, nor the parameters of
+    a copy of its state."""
+    _, init_fn, update_fn, _ = sgd_learners(case)
+    ts1, m1 = update_fn(init_fn(SEED))
+    kept = copy.deepcopy(ts1)
+    held = copy.deepcopy((ts1.opt_state.mu, ts1.opt_state.nu, m1, TP.param_list(kept.params)))
+    ts2, _ = update_fn(ts1)
+    update_fn(ts2)
+    now = (ts1.opt_state.mu, ts1.opt_state.nu, m1, TP.param_list(kept.params))
+    a, b = tensors(held), tensors(now)
+    assert len(a) == len(b) > 20
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not torch.equal(ts2.opt_state.mu[0], ts1.opt_state.mu[0])
+    assert ts2.opt_state.count == 2 * 4 and ts1.opt_state.count == 4
+
+
+def sgd_syncs(tree) -> int:
+    """The host syncs counted in the spans of ``tree`` under its
+    ``ppo.sgd``."""
+    parent = {s["id"]: s["parent"] for s in tree["spans"]}
+    sgd = next(s["id"] for s in tree["spans"] if s["name"] == "ppo.sgd")
+
+    def under(i):
+        while i and i != sgd:
+            i = parent.get(i, 0)
+        return i == sgd
+    return sum(s["syncs"] for s in tree["spans"] if under(s["id"]))
+
+
+@pytest.mark.parametrize("case", list(SGD_CASES))
+def test_each_update_replays_sgd_once_without_host_syncs(dev, case):
+    """One ``ppo.sgd.replay`` span under ``ppo.sgd`` an update, the
+    capture's on the first; no host sync in shuffle + SGD after it (none in
+    the whole fused update, whose envs no staggered reset repacks: the
+    pack's two syncs are the collection's)."""
+    _, init_fn, update_fn, _ = sgd_learners(case, reset_envs_every=0)
+    ts = init_fn(SEED)
+    P.reset()
+    try:
+        for _ in range(3):
+            ts, _ = update_fn(ts, record={})
+        torch.cuda.synchronize()
+        trees = P.trees("ppo.update")
+    finally:
+        P.reset()
+    assert len(trees) == 3 and update_fn.sgd.replays == 3
+    for i, tree in enumerate(trees):
+        names = [s["name"] for s in tree["spans"]]
+        sgd = next(s["id"] for s in tree["spans"] if s["name"] == "ppo.sgd")
+        replay = [s for s in tree["spans"] if s["name"] == "ppo.sgd.replay"]
+        assert len(replay) == 1 and replay[0]["parent"] == sgd
+        assert names.count("ppo.sgd.capture") == (i == 0)
+        # the capture's warm-up and capture run the stage's minibatches; a replay none
+        assert names.count("ppo.sgd.adam") == (2 * 4 if i == 0 else 0)
+        if i:
+            assert sgd_syncs(tree) == 0
+            if case == "fused":
+                assert tree["syncs"] == 0, tree["syncs"]
