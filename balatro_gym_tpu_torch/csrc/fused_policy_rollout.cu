@@ -695,21 +695,16 @@ __device__ void sample_write(const SampleSmem& sm, int l, int g, int base, int n
   log_prob[e] = fsub(fsub(sm.logit[arg * kPitch + l], sample_max(sm, l)), logf(sum));
 }
 
-// The sampler. The step's key is key[0], key[1] where `key` is given (a
-// CUDA graph replays the launch with the words the card holds then), else
-// (k0, k1).
+// The sampler. The step's key is read on the card from key[0], key[1], so
+// that a CUDA graph replays the launch with the words the card holds then.
 __global__ void __launch_bounds__(kSampleBlock)
 policy_sample_kernel(const float* __restrict__ logits, int64_t s_env, int64_t s_act,
-                     int n_envs, const uint32_t* __restrict__ key, uint32_t k0, uint32_t k1,
-                     int* __restrict__ action, float* __restrict__ log_prob) {
+                     int n_envs, const uint32_t* __restrict__ key, int* __restrict__ action,
+                     float* __restrict__ log_prob) {
   __shared__ SampleSmem sm;
   const int l = threadIdx.x % kSampleEnvs, g = threadIdx.x / kSampleEnvs;
   const int base = blockIdx.x * kSampleEnvs;
-  if (key) {
-    k0 = key[0];
-    k1 = key[1];
-  }
-  sample_stage(sm, logits, s_env, s_act, l, g, base, n_envs, k0, k1);
+  sample_stage(sm, logits, s_env, s_act, l, g, base, n_envs, key[0], key[1]);
   __syncthreads();
   sample_partials(sm, l, g, base, n_envs);
   __syncthreads();
@@ -821,26 +816,16 @@ extern "C" int env_reset_launch(int* cards, int* ints, unsigned int* rng,
 }
 
 // The sampler: logits [n_envs, 60] f32 with element strides (s_env, s_act)
-// -> action [n_envs] i32, log_prob [n_envs] f32; (k0, k1) is the step's key.
-extern "C" int policy_sample_launch(const float* logits, long long s_env, long long s_act,
-                                    int n_envs, unsigned int k0, unsigned int k1, int* action,
-                                    float* log_prob, void* stream) {
-  if (n_envs <= 0) return (int)cudaSuccess;
-  policy_sample_kernel<<<(n_envs + kSampleEnvs - 1) / kSampleEnvs, kSampleBlock, 0,
-                         (cudaStream_t)stream>>>(logits, s_env, s_act, n_envs, nullptr, k0, k1,
-                                                 action, log_prob);
-  return (int)cudaGetLastError();
-}
-
-// The sampler with the step's key read on the card from key[0], key[1]
-// (u32), so that a CUDA graph can replay the launch with new words.
+// -> action [n_envs] i32, log_prob [n_envs] f32; the step's key is read on
+// the card from key[0], key[1] (u32), so that a CUDA graph can replay the
+// launch with new words.
 extern "C" int policy_sample_key_launch(const float* logits, long long s_env, long long s_act,
                                         int n_envs, const unsigned int* key, int* action,
                                         float* log_prob, void* stream) {
   if (n_envs <= 0) return (int)cudaSuccess;
   policy_sample_kernel<<<(n_envs + kSampleEnvs - 1) / kSampleEnvs, kSampleBlock, 0,
-                         (cudaStream_t)stream>>>(logits, s_env, s_act, n_envs, key, 0u, 0u,
-                                                 action, log_prob);
+                         (cudaStream_t)stream>>>(logits, s_env, s_act, n_envs, key, action,
+                                                 log_prob);
   return (int)cudaGetLastError();
 }
 

@@ -31,9 +31,10 @@
 //   loop                                               3
 //   total                                            520
 //
-// (chip_smoke.py's K4_STEP_OPS is this table.) Memory traffic is the 576 B
-// an env of coefficient rows read once, the fed actions (4 B an env-step)
-// and 100 B an env of outputs: far below the operations.
+// (benchmark/harness/int_yardstick.py's SIM_STEP_OPS is this table.)
+// Memory traffic is the 576 B an env of coefficient rows read once, the fed
+// actions (4 B an env-step) and 100 B an env of outputs: far below the
+// operations.
 //
 // What the design does about it:
 // - Every env of the 131072-env shape resident at once: 128-thread blocks,

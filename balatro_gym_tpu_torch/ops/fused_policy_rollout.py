@@ -13,8 +13,8 @@ step), and the step also emits the next step's policy inputs.
   post-step state. ``observe_fused`` launches K3b: the observation and mask
   of a state, without stepping (a collection's step 0). ``sample_fused``
   launches the sampler: ``jax.random.categorical`` with the log-probability
-  of the drawn action, its key given as two python ints or as two words on
-  the card (which a CUDA graph's replay reads anew). ``env_step_fused``
+  of the drawn action, its key two words on the card (a row of
+  ``step_key_rows``, which a CUDA graph's replay reads anew). ``env_step_fused``
   launches ``env_step_kernel``: K3a's step without its autoreset,
   observation or mask, the engine's own ``step``
   (``engine.full_env.step``), which the reference leaves to XLA.
@@ -167,8 +167,8 @@ def sample(step_key, logits):
 
 def step_keys(seed, n_steps: int):
     """Step ``t``'s key, ``split(key(seed), n_steps)[t]``, as two python
-    ints each: computed on the host, so passing them to a kernel makes no
-    copy from the card."""
+    ints each, computed on the host; :func:`step_key_rows` gives the same
+    words on a device."""
     return KR.split_keys([int(w) for w in KR.seed_key(seed, device="cpu")], n_steps)
 
 
@@ -182,11 +182,21 @@ def step_key_rows(key, n_steps: int):
     return FF._w2i(torch.stack(child, -1))
 
 
+def seed_key_rows(seed, n_steps: int, device):
+    """:func:`step_keys` of ``seed`` as :func:`step_key_rows` on ``device``.
+    The seed key's two words go to a card once, from pinned memory: a
+    pageable copy would wait for the card's queue to drain."""
+    key = torch.tensor([int(w) for w in KR.seed_key(seed, device="cpu")], dtype=torch.int64)
+    if torch.device(device).type == "cuda":
+        key = key.pin_memory().to(device, non_blocking=True)
+    return step_key_rows(key, n_steps)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
-_P, _INT, _UINT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
+_P, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 @functools.cache
@@ -196,14 +206,13 @@ def _kernel_lib():
     lib.policy_step_launch.argtypes = [_P] * 12 + [_INT, _P]
     lib.env_step_launch.argtypes = [_P] * 10 + [_INT, _P]
     lib.env_reset_launch.argtypes = [_P] * 5 + [_INT, _P]
-    lib.policy_sample_launch.argtypes = [_P, _I64, _I64, _INT, _UINT, _UINT, _P, _P, _P]
     lib.policy_sample_key_launch.argtypes = [_P, _I64, _I64, _INT, _P, _P, _P, _P]
     infos = (lib.policy_step_info, lib.policy_observe_info, lib.policy_sample_info,
              lib.env_step_info, lib.env_reset_info)
     for fn in infos:
         fn.argtypes = [_P]
-    for fn in (lib.policy_observe_launch, lib.policy_step_launch, lib.policy_sample_launch,
-               lib.policy_sample_key_launch, lib.env_step_launch, lib.env_reset_launch, *infos):
+    for fn in (lib.policy_observe_launch, lib.policy_step_launch, lib.policy_sample_key_launch,
+               lib.env_step_launch, lib.env_reset_launch, *infos):
         fn.restype = ctypes.c_int
     return lib
 
@@ -378,13 +387,18 @@ env_reset_fused.launches = 0
 def sample_fused(step_key, logits, *, device=None):
     """:func:`sample` by the sampler kernel on a card, the plain version
     with ``device="cpu"``. The kernel reads ``logits`` in any layout (the
-    policy's matmul may leave them column-major). A tensor ``step_key`` (a
-    ``[2]`` int32 tensor on the card) is read by the kernel there."""
-    dev = run_device((logits,), device)
+    policy's matmul may leave them column-major). On a card ``step_key`` is
+    a ``[2]`` int32 tensor on that card (a row of :func:`step_key_rows`),
+    which the kernel reads there; the plain version takes either form of
+    :func:`sample`."""
+    dev = run_device((step_key, logits), device)
     logits = logits.to(dev)
     if dev.type == "cpu":
         return sample(step_key, logits)
     _on_card(dev, "sample_fused")
+    if not torch.is_tensor(step_key):
+        raise ValueError("step_key: want a [2] int32 tensor (a row of step_key_rows), got "
+                         f"{type(step_key).__name__}")
     n = logits.shape[0]
     if logits.dtype != _F32 or tuple(logits.shape) != (n, N_ACTIONS):
         raise ValueError(f"logits: want a float32 tensor of shape ({n}, {N_ACTIONS}), "
@@ -393,15 +407,9 @@ def sample_fused(step_key, logits, *, device=None):
         raise ValueError(f"sample_fused: {n} envs overflow the 32-bit draw counter")
     action = torch.empty(n, dtype=_I32, device=dev)
     log_prob = torch.empty(n, dtype=_F32, device=dev)
-    if torch.is_tensor(step_key):
-        check_arg(step_key, "step_key", _I32, (2,), dev)
-        _launch(_kernel_lib().policy_sample_key_launch, "policy_sample", dev,
-                logits.data_ptr(), *logits.stride(), n, step_key.data_ptr(),
-                action.data_ptr(), log_prob.data_ptr())
-    else:
-        k1, k2 = step_key
-        _launch(_kernel_lib().policy_sample_launch, "policy_sample", dev, logits.data_ptr(),
-                *logits.stride(), n, k1, k2, action.data_ptr(), log_prob.data_ptr())
+    check_arg(step_key, "step_key", _I32, (2,), dev)
+    _launch(_kernel_lib().policy_sample_key_launch, "policy_sample", dev, logits.data_ptr(),
+            *logits.stride(), n, step_key.data_ptr(), action.data_ptr(), log_prob.data_ptr())
     sample_fused.launches += 1
     return action, log_prob
 
@@ -457,9 +465,9 @@ def _collect(policy, init_state, seed, n_steps, device, fused):
     traj = {k: [] for k in dtypes}
     with torch.no_grad():
         obs, mask = observe(packed)
-        for key in step_keys(seed, n_steps):
+        for row in seed_key_rows(seed, n_steps, dev):
             logits, value = policy(obs, mask)
-            action, log_prob = pick(key, logits)
+            action, log_prob = pick(row, logits)
             packed, reward, done, obs, mask = step(packed, action)
             for k, v in zip(dtypes, (action, log_prob, value, reward, done)):
                 traj[k].append(v)

@@ -57,7 +57,7 @@ from balatro_gym_tpu_torch.ops.alu_ceiling import card_name
 from balatro_gym_tpu_torch.train.networks import ActorCritic
 from balatro_gym_tpu_torch.train.normalize import init_stats, normalize
 
-_P, _INT, _UINT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
+_P, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LOG1P_ROW = FP.OBS_DIM - 6
 
 
@@ -80,7 +80,7 @@ def build(builds: dict) -> dict:
         so = ctypes.CDLL(str(lib))
         so.policy_observe_launch.argtypes = [_P] * 5 + [_INT, _P]
         so.policy_step_launch.argtypes = [_P] * 12 + [_INT, _P]
-        so.policy_sample_launch.argtypes = [_P, _I64, _I64, _INT, _UINT, _UINT, _P, _P, _P]
+        so.policy_sample_key_launch.argtypes = [_P, _I64, _I64, _INT, _P, _P, _P, _P]
         if hasattr(so, "env_reset_launch"):
             so.env_reset_launch.argtypes = [_P] * 5 + [_INT, _P]
         out[label] = (so, [ln.replace("ptxas info    :", "").strip() for ln in err.splitlines()
@@ -100,7 +100,7 @@ def inputs(n: int, dev) -> dict:
     with torch.no_grad():
         logits = net(obs, mask)[0].T.contiguous().T
         trainer = bf16(normalize(init_stats(FP.OBS_DIM, dev), obs), mask)[0]
-    key = FP.step_keys(1, 1)[0]
+    key = FP.seed_key_rows(1, 1, dev)[0]
     no_reset, all_reset = BAT.reset_batches(packed)
     env = torch.arange(n, device=dev)
     keys = torch.stack(KR.split_child(*KR.seed_key(9, device=dev), env), -1)
@@ -129,8 +129,9 @@ def launchers(so, inp, dev) -> dict:
         action = torch.empty(n, dtype=torch.int32, device=dev)
         lp = torch.empty(n, device=dev)
         out["sample", name] = (
-            lambda lg=logits, a=action, p=lp: so.policy_sample_launch(
-                lg.data_ptr(), *lg.stride(), n, *inp["key"], a.data_ptr(), p.data_ptr(), stream),
+            lambda lg=logits, a=action, p=lp: so.policy_sample_key_launch(
+                lg.data_ptr(), *lg.stride(), n, inp["key"].data_ptr(), a.data_ptr(),
+                p.data_ptr(), stream),
             lambda a=action, p=lp: (a, p), lambda lg=logits: FP.sample(inp["key"], lg))
     ft = FF.float_tables(dev)
     for name, (p, a) in inp["step"].items():

@@ -55,6 +55,14 @@ def test_step_key_rows_are_split_keys(key, n):
     assert got == KR.split_keys(key, n)
 
 
+@pytest.mark.parametrize("n", [1, 4, 128])
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 31 + 5])
+def test_seed_key_rows_are_step_keys(seed, n):
+    rows = FP.seed_key_rows(seed, n, "cpu")
+    assert rows.dtype == torch.int32 and rows.shape == (n, 2)
+    assert [tuple(w & 0xFFFFFFFF for w in r) for r in rows.tolist()] == FP.step_keys(seed, n)
+
+
 def test_fused_learner_over_tensor_keys_equals_int_keys():
     """The CPU's fused learner (plain versions, step keys as device rows)
     against the same learner whose sampler gets each step's key as two

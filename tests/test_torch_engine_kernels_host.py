@@ -185,7 +185,7 @@ def single_class_batches(n, seed):
 @pytest.mark.parametrize("n", (33, 64, 257))
 def test_host_env_step_on_single_class_batches(host, n):
     """The step on each batch whose envs all take one branch class (the
-    timing batches of chip_smoke.py's phase 18)."""
+    batches tests/test_torch_full_env_cuda.py steps on the card)."""
     batches = single_class_batches(n, n)
     assert set(batches) == {name for name, _, _ in BAT.ACTION_CLASSES}
     for name, (p, a) in batches.items():

@@ -82,7 +82,7 @@ def test_kernels_equal_plain_along_a_collection(dev, n):
     n0 = _counts()
     obs, mask = FP.observe_fused(packed)
     assert_obs_mask((obs, mask), FP.observe_rows_reference(packed), "observe")
-    for t, key in enumerate(FP.step_keys(7, 16)):
+    for t, key in enumerate(FP.seed_key_rows(7, 16, dev)):
         with torch.no_grad():
             logits, _ = net(obs, mask)
         action, log_prob = FP.sample_fused(key, logits)
@@ -170,7 +170,7 @@ def test_observe_and_sampler_equal_plain(dev, n):
     mask[::3] = False
     with torch.no_grad():
         logits, _ = _policy(dev)(obs, mask)
-    for t, key in enumerate(FP.step_keys(n, 4)):
+    for t, key in enumerate(FP.seed_key_rows(n, 4, dev)):
         want = FP.sample(key, logits)
         assert bool((want[0][::3] == 0).all())
         for layout in (logits.T.contiguous().T, logits.contiguous()):
@@ -211,7 +211,7 @@ def test_entry_points_default_to_the_card(dev):
     assert obs.device == dev and mask.device == dev
     out = FP.step_fused(packed, np.full(300, 45, np.int32))
     assert out[0]["ints"].device == dev
-    action, _ = FP.sample_fused((0, 9), torch.zeros(300, FP.N_ACTIONS))
+    action, _ = FP.sample_fused(FP.seed_key_rows(9, 1, dev)[0], torch.zeros(300, FP.N_ACTIONS))
     assert action.device == dev
     assert _counts() == (n0[0] + 1, n0[1] + 1, n0[2] + 1)
     final, traj = FP.collect_policy_fused(_policy(dev), F.default_reset(2, 300, "cpu"), 0, 2)
@@ -226,7 +226,12 @@ def test_bad_inputs_raise(dev):
         FP.observe_fused(packed, device="cpu")             # card data never to the host
     with pytest.raises(ValueError):
         FP.step_fused(packed, torch.zeros(9, dtype=torch.int32, device=dev))
+    row = FP.seed_key_rows(1, 1, dev)[0]
     with pytest.raises(ValueError):
-        FP.sample_fused((0, 1), torch.zeros(8, FP.N_ACTIONS - 1, device=dev))
+        FP.sample_fused(row, torch.zeros(8, FP.N_ACTIONS - 1, device=dev))
+    with pytest.raises(ValueError):
+        FP.sample_fused((0, 1), torch.zeros(8, FP.N_ACTIONS, device=dev))  # the key as ints
+    with pytest.raises(ValueError):
+        FP.sample_fused(row.cpu(), torch.zeros(8, FP.N_ACTIONS, device=dev))  # a host row
     with pytest.raises(ValueError):
         FP.collect_policy_fused(_policy(dev).cpu(), F.default_reset(2, 8, dev), 0, 1)

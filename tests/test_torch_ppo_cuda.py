@@ -256,9 +256,9 @@ def test_sample_fused_reads_the_key_on_the_card(dev, layout):
     for key in [(0, 7), (0xFFFFFFFF, 0x80000000), (0x12345678, 0x9ABCDEF0)]:
         rows = FP.step_key_rows(torch.tensor(key, dtype=torch.int64, device=dev), 3)
         for row, words in zip(rows, KR.split_keys(key, 3)):
-            a, lp = FP.sample_fused(words, logits)
+            a, lp = FP.sample(words, logits)
             b, lq = FP.sample_fused(row, logits)
-            assert torch.equal(a, b) and torch.equal(lp, lq)
+            assert torch.equal(a, b) and float((lp - lq).abs().max()) <= 1e-6
 
 
 SGD_CASES = {
