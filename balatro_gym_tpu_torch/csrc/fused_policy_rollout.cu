@@ -38,24 +38,8 @@
 // What the design does about it. Every row is written with envs contiguous,
 // so stores coalesce; the observation and mask are written feature-major
 // ([189, B] f32, [60, B] bytes), and the wrapper hands out the transposed
-// views the policy's first matmul reads without a copy. Each kernel has a
-// launch shape of its own.
-//
-// K3a, one thread an env:
-// * blocks of kStepBlock (32) threads, so that 8192 envs make 256 blocks and
-//   every one of the card's 132 SMs gets work;
-// * the env's compact State (888 B, full_step.cuh) in dynamic shared
-//   memory, one slot a thread, 28,416 B a block: the step's runtime-indexed
-//   deck and hand slots are then on chip, where a local State took 255
-//   registers, 3,552 B of stack and 1.8 KB of spill stores. full_step.cuh's
-//   helpers take State&, so load_state, step and store_state run on the slot
-//   unchanged, and every bit is the same. The slot stride, 111 eight-byte
-//   units, is odd, so a field read by a warp at one offset meets at most
-//   2-way bank conflicts;
-// * the autoreset's deck sort unrolled (step<true>, reset_state's unrolled
-//   form), its 64 words in registers: a launch lasts as long as its slowest
-//   warp, and on an H100 any warp with a resetting env paid ~100 us for the
-//   looped sort.
+// views the policy's first matmul reads without a copy. K3a steps the
+// engine's step's blocks of envs; each kernel has a launch shape of its own.
 //
 // env_step_kernel runs step<true, false>: the step without the reset, so a
 // done env keeps its final state and the engine's own reset
@@ -68,12 +52,41 @@
 // 151 hashes in one chain, or a draw) ~70 us, a shop generation alone ~52,
 // a consumable ~46, the rest ~20-25, the load and store alone ~19 (PERF.md).
 // So each block of kEnvStepBlock envs steps them in warps of one branch
-// group (env_step_kernel's phases below), State slots in dynamic shared
-// memory as K3a's (cudaFuncSetAttribute on the first launch on a device);
-// and the shop generation, which three branches reach, runs once a warp
-// after the branches join (step's kJoinShop), where a warp ran it once a
-// branch. The other forms measured (K3a's shape, 128-env blocks, a class
-// pass ordering the whole batch first) were slower (PERF.md).
+// group (env_step_kernel's phases below), the envs' compact States (888 B,
+// full_step.cuh) in slots of dynamic shared memory (cudaFuncSetAttribute on
+// the first launch on a device): the step's runtime-indexed deck and hand
+// slots are then on chip, where a local State took 255 registers and 3,552
+// B of stack. full_step.cuh's helpers take State&, so load_state, step and
+// store_state run on a slot unchanged, and every bit is the same. The slot
+// stride, 111 eight-byte units, is odd, so a field read by a warp at one
+// offset meets at most 2-way bank conflicts. The shop generation, which
+// three branches reach, runs once a warp after the branches join (step's
+// kJoinShop), where a warp ran it once a branch. The other forms measured
+// (one thread an env in 32-thread blocks, 128-env blocks, a class pass
+// ordering the whole batch first) were slower (PERF.md).
+//
+// K3a is env_step_kernel's step with the autoreset, the observation and the
+// mask, on the same blocks of kEnvStepBlock envs and the same classify and
+// place, but kStepJobs threads an env (policy_step_kernel below). One thread
+// an env in 32-thread blocks paid three costs a launch: a warp ran the union
+// of its envs' branches; any warp holding an ended env sorted 64 words in
+// one thread (reset_state), ~26 us of dependent compare-exchanges whatever
+// branch group it ran; and at 8192 envs an SM held two warps, so each
+// thread's ~530 row loads and ~780 row stores waited on memory latency in
+// one chain (on the card ~17 us to load a block and ~19 to store it, of an
+// ~85-us launch, PERF.md). So:
+// * run: warp w steps places 32w..32w+31, envs of one branch group;
+// * reset: the block's ended envs get a fresh episode in their slots, one
+//   warp an env (autoreset_slot): each lane draws 2 of the 52 deck words
+//   and 12 pads, the warp sorts them in shared memory (sort64, as the
+//   engine's reset does), each lane deals 2 deck slots. In training ~1.6%
+//   of envs end a step, about one a block;
+// * load, store: the kStepJobs threads of an env each load or store a part
+//   of its rows, a warp's lanes one row of 32 neighbouring envs.
+// On the trainer's states a launch fell from ~131 to ~75 us, the step of its
+// play branch now ~70% of it. The other forms measured (one thread an env
+// in these blocks, 32-env blocks, a register bound for two blocks an SM)
+// were slower or no faster (PERF.md).
 //
 // env_reset_kernel, one warp an env and kResetEnvs envs a block: a warp's
 // lanes draw the 52 words of the engine's permutation shuffle, two a lane,
@@ -150,11 +163,8 @@
 namespace {
 
 constexpr int kObs = 189, kActions = 60;
-// K3a's launch shape (see above).
-constexpr int kStepBlock = 32;
-constexpr size_t kStepSmem = kStepBlock * sizeof(State);
-// The engine's step: kEnvStepBlock envs a block. The engine's reset:
-// kResetEnvs envs (warps) a block, one a lane when it stores.
+// The engine's step and K3a: kEnvStepBlock envs a block. The engine's
+// reset: kResetEnvs envs (warps) a block, one a lane when it stores.
 constexpr int kEnvStepBlock = 64, kResetEnvs = 32;
 // K3b's: kObserveJobs load jobs of an env (see observe_load) shared by its
 // kObserveGroups threads.
@@ -166,7 +176,8 @@ constexpr int kSampleBlock = kSampleEnvs * kSampleGroups;
 constexpr int kPitch = kSampleEnvs + 1;
 static_assert(kActions % kSampleGroups == 0, "every thread takes as many actions");
 
-// K3a's dynamic shared memory: State slots of its block's threads.
+// The dynamic shared memory of K3a and the engine's step: State slots of a
+// block's envs, and what their phases share.
 extern __shared__ __align__(16) unsigned char k3a_slots[];
 
 #ifndef FULL_ROLLOUT_HOST_SHIM
@@ -333,28 +344,6 @@ policy_observe_kernel(const int* __restrict__ cards, const int* __restrict__ int
   observe_load(slots, cards, ints, l, g, base, n_envs);
   __syncthreads();
   observe_emit(slots, obs, mask, l, g, base, n_envs);
-}
-
-// K3a.
-__global__ void __launch_bounds__(kStepBlock)
-policy_step_kernel(const int* __restrict__ cards_in, const int* __restrict__ ints_in,
-                   const uint32_t* __restrict__ rng_in, const int* __restrict__ actions,
-                   const float* __restrict__ ft, int* __restrict__ cards_out,
-                   int* __restrict__ ints_out, uint32_t* __restrict__ rng_out,
-                   float* __restrict__ reward_out, uint8_t* __restrict__ done_out,
-                   float* __restrict__ obs, uint8_t* __restrict__ mask, int n_envs) {
-  const int e = blockIdx.x * kStepBlock + threadIdx.x;
-  if (e >= n_envs) return;
-  const size_t B = (size_t)n_envs;
-  State& s = reinterpret_cast<State*>(k3a_slots)[threadIdx.x];
-  load_state(s, cards_in, ints_in, rng_in, e, B);
-  bool done = false;
-  const float reward = step<true>(s, actions[e], ft, done);
-  store_state(s, cards_out, ints_out, rng_out, e, B);
-  reward_out[e] = reward;
-  done_out[e] = done ? 1 : 0;
-  write_obs(s, obs, e, B);
-  write_mask(s, mask, e, B);
 }
 
 // The engine's step: K3a's step without the autoreset, the observation or
@@ -561,6 +550,32 @@ __device__ void reset_slot(State& s, uint64_t* v, TfKey key, Lanes&& lanes) {
   });
 }
 
+// K3a's autoreset of the ended env in slot s by one warp: reset_state's
+// fresh episode (the kernels' own shuffle, PARITY #B8, #B16, not the
+// engine's), over 64 sort keys v. Each lane draws 2 of the 52 deck words
+// and 12 pads, the warp sorts them (sort64), each lane deals 2 deck slots,
+// and lane 0 sets the other fields and the key. The words differ in their
+// low 6 bits, so the order is that of reset_state's network. Every lane
+// reads the key and step count before the first lanes(f) returns, and lane
+// 0 rewrites them only in the last. lanes(f) as in sort64.
+template <typename Lanes>
+__device__ void autoreset_slot(State& s, uint64_t* v, Lanes&& lanes) {
+  const TfKey key = tf_fold_in(s.key, (uint32_t)s.sc);
+  const TfKey dk = tf_fold_in(tf_fold_in(key, (uint32_t)ST_DECK), 0u);
+  lanes([&](int l) {
+    v[l] = deck_word(dk, l);
+    v[l + 32] = l + 32 < 52 ? deck_word(dk, l + 32) : 0xFFFFFFFFu;
+  });
+  sort64(v, lanes);
+  lanes([&](int l) {
+    deal(s, l, (uint32_t)v[l]);
+    deal(s, l + 32, (uint32_t)v[l + 32]);
+    if (l != 0) return;
+    reset_fields(s);
+    s.key = key;
+  });
+}
+
 struct ResetSmem {
   State slots[kResetEnvs];
   uint64_t keys[kResetEnvs][kDeck];
@@ -593,6 +608,213 @@ env_reset_kernel(int* __restrict__ cards, int* __restrict__ ints, uint32_t* __re
                });
   __syncthreads();
   reset_store(sm, w, lane, mask, cards, ints, rng, base, n_envs);
+}
+
+// K3a: one fed step with its autoreset, then the packed state, reward, done
+// and the observation and mask rows of the post-step state. kEnvStepBlock
+// envs a block and kStepJobs threads an env (kStepThreads), in six phases
+// split by __syncthreads:
+// * classify: env_step_kernel's, threads t < kEnvStepBlock;
+// * place: thread t < kEnvStepBlock finds env t's place, as env_step_place;
+// * load: thread (job j, env i) loads part j of env i's rows into the slot
+//   of its place (load_part), with load_state's expressions;
+// * run: thread p < kEnvStepBlock fills slot p's hand from its deck
+//   (load_hand, load_state's last loop) and steps it as env_step_kernel does
+//   (the step without its autoreset, the shop generation joined);
+// * reset: warp w gives each ended env of the places p = w (mod kStepWarps)
+//   a fresh episode (autoreset_slot) with its 64 sort keys;
+// * store: thread (job j, env i) stores part j of env i's rows, its state
+//   (store_cards, store_ints, store_rng), observation and mask.
+// Thread t is job t / kEnvStepBlock of env t % kEnvStepBlock, so a warp's
+// lanes load or store one row of 32 neighbouring envs.
+// Its dynamic shared memory (kStepSmem): env_step_kernel's, then each
+// warp's sort keys.
+constexpr int kStepJobs = 4, kStepThreads = kEnvStepBlock * kStepJobs;
+constexpr int kStepWarps = kStepThreads / 32;
+constexpr size_t kStepSmem = kEnvStepSmem + kStepWarps * kDeck * sizeof(uint64_t);
+static_assert(kEnvStepSmem % alignof(uint64_t) == 0, "the sort keys are aligned");
+static_assert(kStepSmem <= 232448, "a block's shared memory, 227 KB");
+
+struct PolicyStepSmem {
+  EnvStepSmem env;
+  uint64_t* keys;    // warp w's 64 at keys + w * kDeck
+};
+
+__device__ __forceinline__ PolicyStepSmem policy_step_smem_of(unsigned char* base) {
+  return {env_step_smem_of(base), reinterpret_cast<uint64_t*>(base + kEnvStepSmem)};
+}
+
+__device__ __forceinline__ void policy_step_place(EnvStepSmem sm, int t) {
+  if (t >= kEnvStepBlock) return;
+  const int p = env_step_place_of(sm.cls, t, kEnvStepBlock);
+  sm.place[t] = (int16_t)p;
+  sm.env_at[p] = (int16_t)t;
+}
+
+// Part j of env e's packed rows into State s, with load_state's expressions:
+// the deck's card channels 0-1, 2-3, channel 4 and the alive set, then the
+// int and rng rows. The hand's channels and in-hand set are load_hand's.
+__device__ void load_part(State& s, int j, const int* __restrict__ cards_in,
+                          const int* __restrict__ ints_in, const uint32_t* __restrict__ rng_in,
+                          int e, size_t B) {
+#define CARD(c, d) cards_in[(size_t)((c) * kDeck + (d)) * B + e]
+  if (j == 0) {
+    for (int d = 0; d < kDeck; ++d) {
+      s.rk[d] = CARD(0, d);
+      s.su[d] = CARD(1, d);
+    }
+    return;
+  }
+  if (j == 1) {
+    for (int d = 0; d < kDeck; ++d) {
+      s.en[d] = CARD(2, d);
+      s.ed[d] = CARD(3, d);
+    }
+    return;
+  }
+  if (j == 2) {
+    uint64_t al = 0;
+    for (int d = 0; d < kDeck; ++d) {
+      s.sl[d] = CARD(4, d);
+      if (CARD(5, d) != 0) al |= 1ull << d;
+    }
+    s.al = al;
+    return;
+  }
+#undef CARD
+#define IN(r) ints_in[(size_t)(r) * B + e]
+  uint32_t sel = 0, fd = 0, high = 0;
+  for (int p = 0; p < kHand; ++p) {
+    s.hidx[p] = IN(R_HIDX + p);
+    sel |= (uint32_t)(IN(R_SEL + p) != 0) << p;
+    fd |= (uint32_t)(IN(R_FD + p) != 0) << p;
+    high |= (uint32_t)(IN(R_HIGH + p) != 0) << p;
+  }
+  s.sel = sel;
+  s.fd = fd;
+  s.high = high;
+  for (int i = 0; i < kJok; ++i) s.jok[i] = IN(R_JOK + i);
+  for (int i = 0; i < kCons; ++i) s.cons[i] = IN(R_CONS + i);
+  for (int r = 0; r < kShop; ++r) {
+    s.sty[r] = IN(R_STY + r);
+    s.sit[r] = IN(R_SIT + r);
+    s.sco[r] = IN(R_SCO + r);
+  }
+  for (int h = 0; h < kLvl; ++h) {
+    s.lvl[h] = IN(R_LVL + h);
+    s.pc[h] = IN(R_PC + h);
+  }
+  s.hn = IN(S_HN); s.jn = IN(S_JN); s.green = IN(S_GREEN); s.bus = IN(S_BUS);
+  s.cn = IN(S_CN); s.vou = IN(S_VOU); s.jslots = IN(S_JSLOTS); s.cslots = IN(S_CSLOTS);
+  s.ante = IN(S_ANTE); s.round = IN(S_ROUND); s.phase = IN(S_PHASE); s.need = IN(S_NEED);
+  s.career = IN(S_CAREER); s.rchips = IN(S_RCHIPS); s.best = IN(S_BEST);
+  s.money = IN(S_MONEY); s.hl = IN(S_HL); s.dl = IN(S_DL); s.hsize = IN(S_HSIZE);
+  s.sn = IN(S_SN); s.rbase = IN(S_RBASE); s.rcost = IN(S_RCOST); s.bid = IN(S_BID);
+  s.btypes = IN(S_BTYPES); s.bverd = IN(S_BVERD); s.hpt = IN(S_HPT); s.hpa = IN(S_HPA);
+  s.jsold = IN(S_JSOLD); s.sc = IN(S_STEPC);
+  s.bact = IN(S_BACT) != 0;
+  s.bfirst = IN(S_BFIRST) != 0;
+  s.done = IN(S_DONE) != 0;
+  s.bp = (uint64_t)(uint32_t)IN(S_BPLO) | ((uint64_t)(uint32_t)IN(S_BPHI) << 32);
+#undef IN
+  s.key.k0 = rng_in[e];
+  s.key.k1 = rng_in[B + e];
+  for (int k = 0; k < kCtr; ++k) s.ctr[k] = rng_in[(size_t)(2 + k) * B + e];
+}
+
+// The hand's channels from the deck and the in-hand set: load_state's last
+// loop, once every part of the env is in s.
+__device__ __forceinline__ void load_hand(State& s) {
+  s.ih = 0;
+  for (int p = 0; p < kHand; ++p) {
+    const int h = s.hidx[p];
+    const bool held = p < s.hn && h >= 0;
+    const bool in_deck = held && h < kDeck;
+    s.hrk[p] = in_deck ? s.rk[h] : 0;
+    s.hsu[p] = in_deck ? s.su[h] : 0;
+    s.hen[p] = in_deck ? s.en[h] : 0;
+    s.hed[p] = in_deck ? s.ed[h] : 0;
+    s.hsl[p] = in_deck ? s.sl[h] : 0;
+    if (held) s.ih |= 1ull << clampi(h, 0, kDeck - 1);
+  }
+}
+
+__device__ __forceinline__ void policy_step_load(EnvStepSmem sm, const int* __restrict__ cards_in,
+                                                 const int* __restrict__ ints_in,
+                                                 const uint32_t* __restrict__ rng_in, int t,
+                                                 int base, int n_envs) {
+  const int i = t % kEnvStepBlock, e = base + i;
+  if (e < n_envs)
+    load_part(sm.slots[sm.place[i]], t / kEnvStepBlock, cards_in, ints_in, rng_in, e,
+              (size_t)n_envs);
+}
+
+__device__ __forceinline__ void policy_step_run(EnvStepSmem sm, const int* __restrict__ actions,
+                                                const float* __restrict__ ft,
+                                                float* __restrict__ reward_out,
+                                                uint8_t* __restrict__ done_out, int p, int base,
+                                                int n_envs) {
+  if (p >= kEnvStepBlock || base + sm.env_at[p] >= n_envs) return;
+  load_hand(sm.slots[p]);
+  env_step_run(sm, actions, ft, reward_out, done_out, p, base, n_envs);
+}
+
+// Warp w's share of the reset phase; lanes(f) as in sort64. Every lane of
+// the warp reads the same slots, so the warp takes its places together.
+template <typename Lanes>
+__device__ void policy_step_reset(PolicyStepSmem sm, int w, int base, int n_envs,
+                                  Lanes&& lanes) {
+  for (int p = w; p < kEnvStepBlock; p += kStepWarps)
+    if (base + sm.env.env_at[p] < n_envs && sm.env.slots[p].done)
+      autoreset_slot(sm.env.slots[p], sm.keys + w * kDeck, lanes);
+}
+
+__device__ __forceinline__ void policy_step_store(EnvStepSmem sm, int* __restrict__ cards_out,
+                                                  int* __restrict__ ints_out,
+                                                  uint32_t* __restrict__ rng_out,
+                                                  float* __restrict__ obs,
+                                                  uint8_t* __restrict__ mask, int t, int base,
+                                                  int n_envs) {
+  const int i = t % kEnvStepBlock, e = base + i;
+  if (e >= n_envs) return;
+  const size_t B = (size_t)n_envs;
+  const State& s = sm.slots[sm.place[i]];
+  switch (t / kEnvStepBlock) {
+    case 0: store_cards(s, cards_out, e, B, 0, kDeck / 2); break;
+    case 1: store_cards(s, cards_out, e, B, kDeck / 2, kDeck); break;
+    case 2:
+      store_ints(s, ints_out, e, B);
+      store_rng(s, rng_out, e, B);
+      write_mask(s, mask, e, B);
+      break;
+    default: write_obs(s, obs, e, B);
+  }
+}
+
+__global__ void __launch_bounds__(kStepThreads)
+policy_step_kernel(const int* __restrict__ cards_in, const int* __restrict__ ints_in,
+                   const uint32_t* __restrict__ rng_in, const int* __restrict__ actions,
+                   const float* __restrict__ ft, int* __restrict__ cards_out,
+                   int* __restrict__ ints_out, uint32_t* __restrict__ rng_out,
+                   float* __restrict__ reward_out, uint8_t* __restrict__ done_out,
+                   float* __restrict__ obs, uint8_t* __restrict__ mask, int n_envs) {
+  const int t = threadIdx.x, base = blockIdx.x * kEnvStepBlock;
+  const PolicyStepSmem sm = policy_step_smem_of(k3a_slots);
+  if (t < kEnvStepBlock) env_step_classify(sm.env, ints_in, actions, t, base, n_envs);
+  __syncthreads();
+  policy_step_place(sm.env, t);
+  __syncthreads();
+  policy_step_load(sm.env, cards_in, ints_in, rng_in, t, base, n_envs);
+  __syncthreads();
+  policy_step_run(sm.env, actions, ft, reward_out, done_out, t, base, n_envs);
+  __syncthreads();
+  const int lane = t % 32;
+  policy_step_reset(sm, t / 32, base, n_envs, [&](auto f) {
+    f(lane);
+    __syncwarp();
+  });
+  __syncthreads();
+  policy_step_store(sm.env, cards_out, ints_out, rng_out, obs, mask, t, base, n_envs);
 }
 
 // The sampler's shared memory: the logits and the Gumbel noise of action a
@@ -768,7 +990,7 @@ extern "C" int policy_step_launch(const int* cards_in, const int* ints_in,
     if (err != cudaSuccess) return (int)err;
     ready[dev] = true;
   }
-  policy_step_kernel<<<(n_envs + kStepBlock - 1) / kStepBlock, kStepBlock, kStepSmem,
+  policy_step_kernel<<<(n_envs + kEnvStepBlock - 1) / kEnvStepBlock, kStepThreads, kStepSmem,
                        (cudaStream_t)stream>>>(cards_in, ints_in, rng_in, actions, ftab,
                                                cards_out, ints_out, rng_out, reward, done,
                                                obs, mask, n_envs);
@@ -831,7 +1053,7 @@ extern "C" int policy_sample_key_launch(const float* logits, long long s_env, lo
 
 // Each kernel's launch shape (kernel_info's out[4]).
 extern "C" int policy_step_info(int* out) {
-  return kernel_info(policy_step_kernel, kStepBlock, kStepSmem, out);
+  return kernel_info(policy_step_kernel, kStepThreads, kStepSmem, out);
 }
 extern "C" int env_step_info(int* out) {
   return kernel_info(env_step_kernel, kEnvStepBlock, kEnvStepSmem, out);

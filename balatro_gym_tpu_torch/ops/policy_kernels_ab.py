@@ -34,8 +34,10 @@ back to back, the builds in turn and in reverse order every other round,
 timed by CUDA events after the card has slept long enough for the host to
 queue them all (so the host's launch cost is not counted); a round's sample
 is their time divided by ``--calls``. Prints one JSON line: the card, each
-build's ptxas lines, and for each (kernel, input) every build's median and
-interquartile range in us, with its samples.
+build's ptxas lines, for each (kernel, input) every build's median and
+interquartile range in us, with its samples, and for each K3a input its mix
+(``step_mix``): the share of its envs in each branch group and the share
+that reset, the divergence and the resetting that its times carry.
 """
 from __future__ import annotations
 
@@ -111,6 +113,24 @@ def inputs(n: int, dev) -> dict:
                      "all_reset": all_reset},
             "reset": {"autoreset": (packed, env % 63 == 5, None),
                       "fresh": (zeros, env >= 0, keys)}}
+
+
+# The step's branch groups (csrc/full_step.cuh branch_group): play; the
+# other classes that generate a shop (reroll, skip); the consumables; the rest.
+GROUPS = ("play", "shop_gen", "consumable", "rest")
+
+
+def step_mix(packed, actions) -> dict:
+    """A K3a input's shares of envs: in each of ``GROUPS`` by the class its
+    step takes, and ending (so reset) in its step, by the plain step."""
+    cls = BAT.branch_classes(packed, actions)
+    c = {name: BAT.BRANCH_CLASSES.index(name) for name in ("play", "skip", "consumable")}
+    group = torch.where(cls == c["play"], 0, torch.where(
+        cls <= c["skip"], 1, torch.where(cls == c["consumable"], 2, 3)))
+    shares = torch.bincount(group, minlength=len(GROUPS)).double() / len(cls)
+    out = dict(zip(GROUPS, shares.tolist()))
+    out["reset"] = float(FP.step_rows_reference(packed, actions)[2].double().mean())
+    return out
 
 
 def launchers(so, inp, dev) -> dict:
@@ -248,11 +268,15 @@ def main(argv=None) -> dict:
     libs = build(builds)
     equal = check(libs, kernels, args.envs, dev)
     times = time_rounds(libs, kernels, args.envs, args.rounds, args.calls, dev)
+    mix = ({f"step {name}": step_mix(p, a)
+            for name, (p, a) in inputs(args.envs, dev)["step"].items()}
+           if "step" in kernels else {})
     out = {"gpu": card_name(), "device": torch.cuda.get_device_name(0), "envs": args.envs,
            "rounds": args.rounds, "calls": args.calls, "builds": builds,
            "ptxas": {label: lines for label, (_, lines) in libs.items()},
            "equal_to_plain": equal, "all_equal": all(equal.values()),
-           "us": {k: {label: summary(xs) for label, xs in v.items()} for k, v in times.items()}}
+           "us": {k: {label: summary(xs) for label, xs in v.items()} for k, v in times.items()},
+           "mix": mix}
     print(json.dumps(out), flush=True)
     return out
 

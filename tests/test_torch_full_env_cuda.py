@@ -75,13 +75,14 @@ def test_env_step_kernel_equals_plain(dev, n):
 def test_env_step_kernel_shape(dev):
     """The step's 64-env blocks and their shared memory (888 B a State
     slot, a class byte and two 2-byte places an env), at most 72 registers
-    and 160 B of stack, K3a's shape's; K3a's shape as before; the reset's
-    32 warps a block, a State slot and 64 sort keys each."""
+    and 160 B of stack; K3a's blocks of envs the same with four threads an
+    env, its shared memory the same and each of its eight warps' 64 sort
+    keys; the reset's 32 warps a block, a State slot and 64 sort keys each."""
     shape = FP.env_step_kernel_shape()
     assert shape["block"] == 64 and shape["shared_bytes"] == 64 * (888 + 5), shape
     assert shape["registers"] <= 72 and shape["stack_bytes"] <= 160, shape
     k3a = FP.step_kernel_shape()
-    assert k3a["block"] == 32 and k3a["shared_bytes"] == 32 * 888, k3a
+    assert k3a["block"] == 4 * 64 and k3a["shared_bytes"] == 64 * (888 + 5) + 8 * 64 * 8, k3a
     reset = FP.env_reset_kernel_shape()
     assert reset["block"] == 1024 and reset["shared_bytes"] == 32 * (888 + 64 * 8), reset
 

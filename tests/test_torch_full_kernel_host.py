@@ -325,19 +325,78 @@ POLICY_LAUNCH = r"""
 #include "shim.h"
 #include "fused_policy_rollout.cu"
 namespace {
-__attribute__((aligned(16))) unsigned char k3a_slots[std::max(kStepSmem, kEnvStepSmem)];
+__attribute__((aligned(16))) unsigned char k3a_slots[kStepSmem];
 State observe_slots[kObserveEnvs];
 SampleSmem sample_smem;
 }
-// K3a: one thread an env; its State slot filled with junk before it runs.
+// One warp's lanes, in turn: the host's form of a warp's phase.
+const auto host_lanes = [](auto f) {
+  for (int l = 0; l < 32; ++l) f(l);
+};
+// K3a (policy_step_kernel), block by block, each phase for every thread (the
+// reset phase: every warp) of the block before the next, over shared memory
+// filled with junk.
 extern "C" void host_step(const int* c, const int* i, const uint32_t* r, const int* act,
                           const float* ft, int* co, int* io, uint32_t* ro, float* rw,
                           uint8_t* done, float* obs, uint8_t* mask, int n) {
+  const PolicyStepSmem sm = policy_step_smem_of(k3a_slots);
+  for (int base = 0; base < n; base += kEnvStepBlock) {
+    memset(k3a_slots, 0xA5, kStepSmem);
+    for (int t = 0; t < kEnvStepBlock; ++t) env_step_classify(sm.env, i, act, t, base, n);
+    for (int t = 0; t < kStepThreads; ++t) policy_step_place(sm.env, t);
+    for (int t = 0; t < kStepThreads; ++t) policy_step_load(sm.env, c, i, r, t, base, n);
+    for (int t = 0; t < kStepThreads; ++t) policy_step_run(sm.env, act, ft, rw, done, t, base, n);
+    for (int w = 0; w < kStepWarps; ++w) policy_step_reset(sm, w, base, n, host_lanes);
+    for (int t = 0; t < kStepThreads; ++t)
+      policy_step_store(sm.env, co, io, ro, obs, mask, t, base, n);
+  }
+}
+// K3a's load phase and load_hand against load_state: env e of n <= kEnvStepBlock
+// (at place n - 1 - e) from shared memory filled with junk, and a State of
+// load_state filled with the same junk; both stored to (co, io, ro), (cw, iw, rw).
+// Returns the number of envs whose two States differ in any byte.
+extern "C" int host_step_load(const int* c, const int* i, const uint32_t* r, int* co, int* io,
+                               uint32_t* ro, int* cw, int* iw, uint32_t* rw, int n) {
+  const PolicyStepSmem sm = policy_step_smem_of(k3a_slots);
+  memset(k3a_slots, 0xA5, kStepSmem);
+  for (int t = 0; t < kEnvStepBlock; ++t) sm.env.place[t] = (int16_t)(n - 1 - t);
+  for (int t = 0; t < kStepThreads; ++t) policy_step_load(sm.env, c, i, r, t, 0, n);
+  int differ = 0;
   for (int e = 0; e < n; ++e) {
-    blockIdx.x = e / kStepBlock;
-    threadIdx.x = e % kStepBlock;
-    memset(k3a_slots + threadIdx.x * sizeof(State), 0xA5, sizeof(State));
-    policy_step_kernel(c, i, r, act, ft, co, io, ro, rw, done, obs, mask, n);
+    State& got = sm.env.slots[n - 1 - e];
+    load_hand(got);
+    store_state(got, co, io, ro, e, (size_t)n);
+    State s;
+    memset(&s, 0xA5, sizeof(State));
+    load_state(s, c, i, r, e, (size_t)n);
+    store_state(s, cw, iw, rw, e, (size_t)n);
+    differ += memcmp(&s, &got, sizeof(State)) != 0;
+  }
+  return differ;
+}
+// K3a's reset phase on one block of n <= kEnvStepBlock envs, each loaded
+// into the slot of its own place with its done flag where ended[e] is set,
+// over shared memory filled with junk, stored to (co, io, ro); and
+// reset_state's unrolled form on the same flagged envs, stored to (cw, iw, rw).
+extern "C" void host_step_reset(const int* c, const int* i, const uint32_t* r,
+                                const uint8_t* ended, int* co, int* io, uint32_t* ro, int* cw,
+                                int* iw, uint32_t* rw, int n) {
+  const PolicyStepSmem sm = policy_step_smem_of(k3a_slots);
+  memset(k3a_slots, 0xA5, kStepSmem);
+  for (int p = 0; p < kEnvStepBlock; ++p) {
+    sm.env.env_at[p] = (int16_t)p;
+    if (p >= n) continue;
+    load_state(sm.env.slots[p], c, i, r, p, (size_t)n);
+    sm.env.slots[p].done = ended[p] != 0;
+  }
+  for (int w = 0; w < kStepWarps; ++w) policy_step_reset(sm, w, 0, n, host_lanes);
+  for (int e = 0; e < n; ++e) {
+    store_state(sm.env.slots[e], co, io, ro, e, (size_t)n);
+    State s;
+    load_state(s, c, i, r, e, (size_t)n);
+    s.done = ended[e] != 0;
+    if (ended[e]) reset_state<true>(s);
+    store_state(s, cw, iw, rw, e, (size_t)n);
   }
 }
 // The engine's step (env_step_kernel), block by block, each phase for
@@ -360,10 +419,6 @@ extern "C" void host_env_step(const int* c, const int* i, const uint32_t* r, con
 extern "C" void host_places(const uint8_t* cls, int envs, int16_t* out) {
   for (int t = 0; t < envs; ++t) out[t] = (int16_t)env_step_place_of(cls, t, envs);
 }
-// One warp's lanes, in turn: the host's form of a warp's phase.
-const auto host_lanes = [](auto f) {
-  for (int l = 0; l < 32; ++l) f(l);
-};
 // The engine's reset (env_reset_kernel), block by block over shared memory
 // filled with junk: a block with no masked env skipped, then the shuffle
 // phase of each masked env's warp, then the store phase of every thread.
@@ -440,6 +495,8 @@ def host_policy(tmp_path_factory):
     so.host_observe.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
     so.host_step.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int]
     so.host_env_step.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int]
+    so.host_step_reset.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int]
+    so.host_step_load.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int]
     so.host_sample.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                                ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p,
                                ctypes.c_void_p]
@@ -475,7 +532,31 @@ def host_policy(tmp_path_factory):
                          reward.data_ptr(), done.data_ptr(), n)
         return out, reward, done
 
+    def step_reset(packed, ended):
+        """K3a's reset phase and ``reset_state<true>`` on the envs of one
+        block where ``ended``: the packed rows of each."""
+        n = packed["ints"].shape[1]
+        ended = ended.to(torch.bool).contiguous()
+        got, want = ({k: torch.empty_like(v) for k, v in packed.items()} for _ in range(2))
+        so.host_step_reset(*(packed[k].data_ptr() for k in ("cards", "ints", "rng")),
+                           ended.data_ptr(), *(got[k].data_ptr() for k in ("cards", "ints", "rng")),
+                           *(want[k].data_ptr() for k in ("cards", "ints", "rng")), n)
+        return got, want
+
+    def step_load(packed):
+        """K3a's load phase and ``load_state`` on the envs of one block: the
+        number of envs whose States differ in a byte, and the packed rows
+        each stores."""
+        n = packed["ints"].shape[1]
+        got, want = ({k: torch.empty_like(v) for k, v in packed.items()} for _ in range(2))
+        differ = so.host_step_load(*(packed[k].data_ptr() for k in ("cards", "ints", "rng")),
+                                   *(got[k].data_ptr() for k in ("cards", "ints", "rng")),
+                                   *(want[k].data_ptr() for k in ("cards", "ints", "rng")), n)
+        return differ, got, want
+
     step.env_step = env_step
+    step.reset = step_reset
+    step.load = step_load
 
     def sample(key, logits):
         n = logits.shape[0]
@@ -636,11 +717,11 @@ def test_host_policy_step_fed_battery(host_policy):
     assert all(v > 0 for v in BAT.coverage(np.stack(script)).values())
 
 
-@pytest.mark.parametrize("n", (1, 31, 33, 257))
+@pytest.mark.parametrize("n", (1, 31, 33, 63, 64, 65, 128, 129, 257))
 def test_host_policy_step_partial_blocks(host_policy, n):
-    """K3a at env counts that leave a partial block of its 32 threads (and
-    a slot index past the first block's), along 8 fed legal steps from a
-    diversified state, against the plain step."""
+    """K3a at env counts around its blocks of 64 envs (a partial block,
+    whole ones, an env past the last whole block), along 8 fed legal steps
+    from a diversified state, against the plain step."""
     _, step, _ = host_policy
     rng = np.random.default_rng(n)
     st = BAT.surgery(F.rollout_full_fused(n, n, 4, device="cpu")["state"], rng)
@@ -663,6 +744,52 @@ def test_host_policy_step_reset_batches(host_policy):
         ref = FP.step_rows_reference(p, a)
         assert_step_equal(step(p, a), ref, what)
         assert bool((ref[2] == ends).all()), what
+
+
+@pytest.mark.parametrize("ended", ("every", "single"))
+def test_host_policy_step_warp_reset_equals_reset_state(host_policy, ended):
+    """K3a's reset phase (a warp an ended env, the sort in shared memory)
+    against ``reset_state<true>`` (the sort in one thread) on the same
+    slots of a block of 64 mid-game envs, each with its own key and step
+    count: every env flagged, or one alone (its neighbours' slots then keep
+    the loaded state). Deck and fields, as the packed rows hold them, bit
+    for bit."""
+    _, step, _ = host_policy
+    packed = F.pack_full_state(F.rollout_full_fused(8, 64, 6, device="cpu")["state"])
+    packed["ints"][F.S_STEPC] = torch.arange(64, dtype=torch.int32) * 7 + 1
+    mask = torch.ones(64, dtype=torch.bool) if ended == "every" else torch.arange(64) == 37
+    got, want = step.reset(packed, mask)
+    for k in ("cards", "ints", "rng"):
+        bad = torch.nonzero(got[k] != want[k])
+        assert len(bad) == 0, f"{k} differs at {bad[:5].tolist()}"
+    fresh = F._load(got)
+    assert bool((fresh["ante"][mask] == 1).all()) and bool((fresh["sc"][mask] == 0).all())
+    kept = {k: v[..., ~mask] for k, v in packed.items()}
+    assert all(torch.equal(got[k][..., ~mask], kept[k]) for k in got)
+
+
+@pytest.mark.parametrize("n", (37, 64))
+def test_host_policy_step_load_equals_load_state(host_policy, n):
+    """K3a's load phase (four threads an env, each a part of its rows, into
+    the slot of its place) and its hand fill against ``load_state`` on the
+    same junk-filled memory: every byte of the State and the packed rows it
+    stores. The rows are random words (the hand's deck slots and size around
+    their ranges), since both only copy and convert them."""
+    _, step, _ = host_policy
+    g = torch.Generator().manual_seed(n)
+    packed = {"cards": torch.randint(-2**31, 2**31, (6, F.N_DECK, n), generator=g,
+                                     dtype=torch.int64).to(torch.int32),
+              "ints": torch.randint(-2**31, 2**31, (F.NI, n), generator=g,
+                                    dtype=torch.int64).to(torch.int32),
+              "rng": torch.randint(-2**31, 2**31, (F.NR, n), generator=g,
+                                   dtype=torch.int64).to(torch.int32)}
+    packed["cards"][5] = torch.randint(0, 2, (F.N_DECK, n), generator=g, dtype=torch.int32)
+    packed["ints"][F.R_HIDX:F.R_HIDX + 10] = torch.randint(-2, 70, (10, n), generator=g,
+                                                           dtype=torch.int32)
+    packed["ints"][F.S_HN] = torch.randint(-1, 10, (n,), generator=g, dtype=torch.int32)
+    differ, got, want = step.load(packed)
+    assert differ == 0
+    assert all(torch.equal(got[k], want[k]) for k in got)
 
 
 @pytest.mark.parametrize("n", (33, 512))

@@ -7,6 +7,7 @@ engine's reset bit for bit)."""
 import pytest
 import torch
 
+from balatro_gym_tpu_torch.ops import fused_full_battery as BAT
 from balatro_gym_tpu_torch.ops import fused_full_rollout as FF
 from balatro_gym_tpu_torch.ops import fused_policy_rollout as FP
 from balatro_gym_tpu_torch.ops import policy_kernels_ab as AB
@@ -84,3 +85,21 @@ def test_summary():
     s = AB.summary([4.0, 1.0, 3.0, 2.0, 5.0])
     assert (s["median_us"], s["iqr_us"]) == (3.0, 3.0)
     assert s["samples_us"] == [4.0, 1.0, 3.0, 2.0, 5.0]
+
+
+def test_step_mix(plain):
+    """Each K3a input's mix: group shares summing to 1, by the battery's
+    branch classes; the no-autoreset input resets no env, the all-autoreset
+    one every env, each of them idle (over), so in the group of the rest."""
+    inp, out = plain
+    mix = {name: AB.step_mix(p, a) for name, (p, a) in inp["step"].items()}
+    for name, m in mix.items():
+        assert set(m) == {*AB.GROUPS, "reset"}, name
+        assert abs(sum(m[g] for g in AB.GROUPS) - 1) < 1e-12, name
+        assert m["reset"] == float(out["step", name][2].double().mean()), name
+    assert mix["no_reset"]["reset"] == 0 and mix["all_reset"]["reset"] == 1
+    assert mix["all_reset"]["rest"] == 1
+    p, a = inp["step"]["mid"]
+    hist = BAT.class_histogram(p, a)
+    assert mix["mid"]["play"] == hist.get("play", 0) / N
+    assert mix["mid"]["shop_gen"] == (hist.get("reroll", 0) + hist.get("skip", 0)) / N

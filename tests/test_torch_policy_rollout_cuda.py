@@ -27,7 +27,7 @@ from balatro_gym_tpu_torch.train.networks import ActorCritic
 
 pytestmark = pytest.mark.cuda
 
-SIZES = (1, 31, 33, 257, 1000, 1025, 8192, 8193)  # K3a: 32-thread blocks
+SIZES = (1, 31, 33, 257, 1000, 1025, 8192, 8193)  # K3a: 64-env blocks
 LOG1P_ROW = FP.OBS_DIM - 6
 SOURCE = (Path(FP.__file__).resolve().parents[1] / "csrc" / "fused_policy_rollout.cu").read_text()
 STATE_BYTES = 888
@@ -129,9 +129,14 @@ def test_step_kernel_equals_plain_on_the_autoreset_batches(dev):
 
 
 def test_step_kernel_shape(dev):
-    """K3a runs 32 threads a block, each env's 888 B State in shared memory."""
+    """K3a runs the engine step's blocks of 64 envs and its shared memory
+    (888 B a State slot, a class byte and two 2-byte places an env) with four
+    threads an env, and each of its eight warps' 64 sort keys of 8 B; its
+    stack no larger than the engine step's 160 B."""
     shape = FP.step_kernel_shape()
-    assert shape["block"] == 32 and shape["shared_bytes"] == 32 * STATE_BYTES, shape
+    assert shape["block"] == 4 * 64, shape
+    assert shape["shared_bytes"] == 64 * (STATE_BYTES + 5) + 8 * 64 * 8, shape
+    assert shape["stack_bytes"] <= 160, shape
 
 
 def test_observe_kernel_shape(dev):
